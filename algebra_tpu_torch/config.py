@@ -1,0 +1,16 @@
+"""Runtime configuration of the port.
+
+There is no switch that chooses between a kernel and its plain version:
+a CUDA tensor launches the kernel, a CPU tensor takes the plain version,
+and nothing else decides.
+"""
+
+from __future__ import annotations
+
+import os
+
+# Device used by entry points and field kinds when the caller names none.
+default_device: str = "cuda"
+
+# Where the CUDA sources are compiled to shared libraries at first use.
+build_dir: str = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")

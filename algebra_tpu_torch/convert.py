@@ -1,0 +1,44 @@
+"""The one place that knows how the JAX package's arrays relate to the
+port's tensors.
+
+Today the two formats coincide: limb-major [L, *batch], little-endian
+16-bit limbs, one limb per 32-bit word, Montgomery form, canonical.  The
+reference holds them as numpy/JAX ``uint32``; the port as ``torch.int32``
+(limbs are < 2^16, so the sign bit never matters, and int32 is the type
+torch computes with on every device).  Every test crosses here, so the
+stored format can change later without touching them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import config
+from .fields.prime import PrimeField
+from .poly.domain import Radix2EvaluationDomain
+
+
+def from_reference(arr, device=None) -> torch.Tensor:
+    """uint32 [L, *batch] limb array (numpy, or anything ``np.asarray``
+    takes) -> int32 tensor on ``device`` (the default device when None)."""
+    device = torch.device(device if device is not None else config.default_device)
+    a = np.array(arr, dtype=np.uint32, order="C")  # a copy the tensor may own
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+def to_reference(t: torch.Tensor) -> np.ndarray:
+    """int32 limb tensor (any device) -> numpy uint32 [L, *batch]."""
+    a = t.detach().cpu().contiguous().numpy()
+    return a.view(np.uint32)
+
+
+def domain_from_reference(field: PrimeField, size: int, offset, roots,
+                          roots_inv) -> Radix2EvaluationDomain:
+    """A port domain over ``field`` that computes from a reference domain's
+    twiddle tables (``roots``, ``roots_inv``: uint32 [L, size/2] arrays),
+    so both sides start from the same state."""
+    d = Radix2EvaluationDomain(field, size, offset)
+    d._roots = from_reference(roots, field.device)
+    d._roots_inv = from_reference(roots_inv, field.device)
+    return d

@@ -1,0 +1,71 @@
+"""The port stands alone: importing algebra_tpu_torch and every submodule
+pulls in neither jax nor the JAX package, needs no CUDA, nvcc or triton,
+and the chip smoke script imports neither as well."""
+
+import ast
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_WALK = """
+import importlib, pkgutil, sys
+import algebra_tpu_torch
+names = ["algebra_tpu_torch"]
+for mod in pkgutil.walk_packages(algebra_tpu_torch.__path__, prefix="algebra_tpu_torch."):
+    importlib.import_module(mod.name)
+    names.append(mod.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "algebra_tpu", "triton"))
+print("MODULES", len(names), "BAD", bad)
+import torch
+from algebra_tpu_torch import config
+print("CUDA", torch.cuda.is_available(), "DEFAULT", config.default_device)
+"""
+
+
+def _imports_of(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            found.add(node.module.split(".")[0])
+    return found
+
+
+def test_package_imports_without_jax_or_cuda():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run(
+        [sys.executable, "-c", _WALK], env=env, cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    n_modules = int(out.stdout.split("MODULES")[1].split()[0])
+    assert n_modules >= 20, out.stdout
+    assert "DEFAULT cuda" in out.stdout
+
+
+def test_no_source_file_imports_jax():
+    forbidden = {"jax", "jaxlib", "algebra_tpu"}
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "algebra_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        assert not (_imports_of(path) & forbidden), path
+
+
+def test_kernel_sources_are_in_the_package():
+    csrc = os.path.join(REPO, "algebra_tpu_torch", "csrc")
+    assert {"mont.cuh", "mont_kernels.cu"} <= set(os.listdir(csrc))
+    from algebra_tpu_torch.kernels import build
+
+    # one library per word count, named after a hash of the sources
+    paths = {build.library_path(w) for w in build.WORD_COUNTS}
+    assert len(paths) == 3 and all("_build" in p for p in paths)
