@@ -12,5 +12,11 @@ import os
 # Device used by entry points and field kinds when the caller names none.
 default_device: str = "cuda"
 
+# Smallest batch that ``PrimeField.inverse`` sends through the blocked
+# batched inversion (``ops/mont.batch_inverse``).  A single element, such as
+# a leading coefficient, has nothing to share the one ladder with and takes
+# ``ops/mont.inv``.
+inverse_min_batch: int = 2
+
 # Where the CUDA sources are compiled to shared libraries at first use.
 build_dir: str = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")

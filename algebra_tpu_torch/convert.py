@@ -7,6 +7,13 @@ reference holds them as numpy/JAX ``uint32``; the port as ``torch.int32``
 (limbs are < 2^16, so the sign bit never matters, and int32 is the type
 torch computes with on every device).  Every test crosses here, so the
 stored format can change later without touching them.
+
+What crosses: field-element arrays (``from_reference``/``to_reference``),
+which is all that the inputs and outputs of the field layer, batched
+inversion, the polynomial classes and both entry points are; and a
+domain's twiddle tables (``domain_from_reference``).  Masks and int8
+results (``is_zero``, ``legendre``, ``sqrt``'s ok) compare as plain numpy
+arrays and need nothing here.
 """
 
 from __future__ import annotations

@@ -14,7 +14,8 @@
 // (it lands in the kernel's constant bank, so p[k] with a static k is an
 // immediate-like operand after unrolling).
 //
-// These functions are what the later group-law and inversion kernels inline.
+// These functions are what the inversion kernels inline, and what the later
+// group-law kernels will.
 
 #pragma once
 
@@ -25,6 +26,13 @@ template <int W>
 struct FieldParams {
   uint32_t p[W];   // modulus, little-endian 32-bit words
   uint32_t inv32;  // -p^-1 mod 2^32
+};
+
+// W words passed to a kernel by value: a field constant (one in Montgomery
+// form) or an exponent.
+template <int W>
+struct Words {
+  uint32_t w[W];
 };
 
 // ---------------------------------------------------------------- load/store
@@ -50,6 +58,37 @@ __device__ __forceinline__ void store_limbs(uint32_t* x, size_t ls, size_t off,
     x[(size_t)(2 * k) * ls + off] = r[k] & 0xFFFFu;
     x[(size_t)(2 * k + 1) * ls + off] = r[k] >> 16;
   }
+}
+
+// Bounded forms, for an array [2W, n] whose last block is ragged: element
+// `off` is read and written at limb stride n where off < n; past the end a
+// load gives `fill` and a store does nothing, so no caller pads a copy.
+template <int W>
+__device__ __forceinline__ void load_limbs_bounded(uint32_t (&r)[W],
+                                                   const uint32_t* x, size_t n,
+                                                   size_t off,
+                                                   const Words<W>& fill) {
+  if (off < n) {
+    load_limbs<W>(r, x, n, off);
+  } else {
+#pragma unroll
+    for (int k = 0; k < W; ++k) r[k] = fill.w[k];
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_limbs_bounded(uint32_t* x, size_t n,
+                                                    size_t off,
+                                                    const uint32_t (&r)[W]) {
+  if (off < n) store_limbs<W>(x, n, off, r);
+}
+
+template <int W>
+__device__ __forceinline__ bool is_zero(const uint32_t (&a)[W]) {
+  uint32_t any = 0;
+#pragma unroll
+  for (int k = 0; k < W; ++k) any |= a[k];
+  return any == 0;
 }
 
 // ------------------------------------------------------------- add/sub/reduce
@@ -162,4 +201,73 @@ __device__ __forceinline__ void mont_mul(uint32_t (&r)[W], const uint32_t (&a)[W
 #pragma unroll
   for (int k = 0; k < W; ++k) res[k] = t[k];
   cond_sub<W>(r, res, t[W], fp);
+}
+
+// r = a * a * R^-1 mod p, bit for bit what mont_mul<W>(r, a, a, fp) gives,
+// with W(W+1)/2 + W^2 + W multiply-adds in place of 2 W^2 + W.  The square
+// is formed first (each product a[i]*a[j], i < j, once, then doubled, then
+// the diagonal added), and reduced after: round i picks m so word i
+// cancels and adds m * p at word i.  Both orders add the same multiple
+// M * p (the one M < R with a*a + M*p = 0 mod R), so the word-by-word
+// results agree.  a*a + M*p < 2 R p needs one bit above 2W words: `top`.
+// r may be a itself: a is read only before r is written.
+template <int W>
+__device__ __forceinline__ void mont_sq(uint32_t (&r)[W], const uint32_t (&a)[W],
+                                        const FieldParams<W>& fp) {
+  uint32_t t[2 * W];
+#pragma unroll
+  for (int k = 0; k < 2 * W; ++k) t[k] = 0;
+
+  // t = sum over i < j of a[i] a[j] 2^(32 (i + j))   (< 2^(64 W - 1))
+#pragma unroll
+  for (int i = 0; i < W - 1; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < W; ++j) {
+      uint64_t s = (uint64_t)a[i] * a[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    t[i + W] = (uint32_t)c;  // first write of this word
+  }
+
+  // t = 2 t + sum over i of a[i]^2 2^(64 i)
+#pragma unroll
+  for (int k = 2 * W - 1; k > 0; --k) t[k] = (t[k] << 1) | (t[k - 1] >> 31);
+  t[0] = 0;  // word 0 holds no cross product
+  {
+    uint32_t c = 0;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      uint64_t sq = (uint64_t)a[i] * a[i];
+      uint64_t s = (uint64_t)t[2 * i] + (uint32_t)sq + c;
+      t[2 * i] = (uint32_t)s;
+      s = (uint64_t)t[2 * i + 1] + (uint32_t)(sq >> 32) + (uint32_t)(s >> 32);
+      t[2 * i + 1] = (uint32_t)s;
+      c = (uint32_t)(s >> 32);
+    }
+  }
+
+  // reduce: after round i words 0..i are zero; `top` is the carry out of
+  // word i + W, added at word i + W + 1 in the next round
+  uint32_t top = 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    uint32_t m = t[i] * fp.inv32;
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      uint64_t s = (uint64_t)m * fp.p[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[i + W] + c + top;
+    t[i + W] = (uint32_t)s;
+    top = (uint32_t)(s >> 32);
+  }
+
+  uint32_t res[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) res[k] = t[W + k];
+  cond_sub<W>(r, res, top, fp);
 }

@@ -1,19 +1,7 @@
-// The field kernels of the NTT path, compiled once per word count:
-//   nvcc -DMONT_W=8|12|24 -gencode arch=compute_90a,code=sm_90a -shared ...
-// Plain C interface (loaded with ctypes): every launcher takes raw device
-// pointers and a stream, launches, and returns cudaGetLastError().  No
-// allocation and no synchronisation happen here.
+// The field kernels of the NTT path: the Montgomery product and one
+// butterfly stage.  Built and bound as launch.cuh says.
 
-#include <cuda_runtime.h>
-
-#include "mont.cuh"
-
-#ifndef MONT_W
-#error "compile with -DMONT_W=<number of 32-bit words per field element>"
-#endif
-
-constexpr int kW = MONT_W;
-constexpr int kThreads = 128;
+#include "launch.cuh"
 
 // Montgomery product, one thread per element, grid-stride.  Operand x sits
 // at word k * x_ls + i * x_bs: x_bs = 1 for a full [L, n] array, x_bs = 0
@@ -73,20 +61,6 @@ butterfly_kernel(const uint32_t* lo, const uint32_t* hi, uint32_t* olo,
     store_limbs<W>(olo, ls, off, s);
     store_limbs<W>(ohi, ls, off, d);
   }
-}
-
-static FieldParams<kW> make_params(const uint32_t* p_words, uint32_t inv32) {
-  FieldParams<kW> fp;
-  for (int k = 0; k < kW; ++k) fp.p[k] = p_words[k];
-  fp.inv32 = inv32;
-  return fp;
-}
-
-static unsigned grid_for(size_t n) {
-  // enough blocks to fill the card several times over; the kernels stride
-  size_t blocks = (n + kThreads - 1) / kThreads;
-  size_t cap = 132 * 64;
-  return (unsigned)(blocks < cap ? (blocks ? blocks : 1) : cap);
 }
 
 extern "C" {

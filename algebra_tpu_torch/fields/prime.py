@@ -66,8 +66,15 @@ class PrimeField(Field):
         return mont.square(self.spec, a)
 
     def inverse(self, a):
-        """Inverse; 0 -> 0, by a per-lane Fermat ladder."""
+        """Inverse; 0 -> 0.  A batch goes through the blocked batched
+        inversion (about three products an element), a single element
+        through a Fermat ladder.  Both give the unique canonical inverse."""
+        if a[0].numel() >= config.inverse_min_batch:
+            return mont.batch_inverse(self.spec, a)
         return mont.inv(self.spec, a)
+
+    def batch_inverse(self, a, axis=0):
+        return mont.batch_inverse(self.spec, a, axis=axis)
 
     def mul_by_u32(self, a, k: int):
         return mont.mul_by_u32(self.spec, a, k)
@@ -78,6 +85,50 @@ class PrimeField(Field):
 
     def equal(self, a, b):
         return mont.equal(self.spec, a, b)
+
+    # --- square roots / legendre ---------------------------------------------
+    def legendre(self, a):
+        """int8 batch: 0 for zero, 1 for a square, -1 for a non-square."""
+        s = mont.pow_fixed(self.spec, a, self.spec.modulus_minus_one_div_two)
+        is_one = self.equal(s, self.one(self.batch_shape(a)))
+        sign = torch.where(is_one, 1, -1)
+        return torch.where(self.is_zero(a), 0, sign).to(torch.int8)
+
+    def sqrt(self, a):
+        """Batched square root: (ok mask, root).  ok is False where ``a`` is
+        a non-square, and the root means nothing there.  The root is the one
+        the field's precomputation gives (p = 3 mod 4: a^((p+1)/4); else
+        Tonelli-Shanks), so sign conventions downstream agree with the
+        reference."""
+        spec = self.spec
+        if spec.sqrt_mode == "case3mod4":
+            root = mont.pow_fixed(spec, a, spec.sqrt_exp)
+        else:
+            root = self._tonelli_shanks(a)
+        return self.equal(self.square(root), a), root
+
+    def _tonelli_shanks(self, a):
+        """Tonelli-Shanks with the same steps for every element (about
+        s^2 / 2 squarings for two-adicity s), a double loop on the host."""
+        spec = self.spec
+        if spec.two_adic_root_of_unity is None:
+            raise ValueError(f"{spec.name}: no generator known; cannot sqrt")
+        shape = self.batch_shape(a)
+        # w = a^((t-1)/2); x = a*w; b = x*w = a^t
+        w = mont.pow_fixed(spec, a, (spec.trace - 1) // 2)
+        x = self.mul(a, w)
+        b = self.mul(x, w)
+        z = self.constant(spec.two_adic_root_of_unity, shape)
+        one = self.one(shape)
+        for i in range(spec.two_adicity, 1, -1):
+            t = b
+            for _ in range(i - 2):
+                t = self.square(t)
+            flag = ~self.equal(t, one)
+            x = self.select(flag, self.mul(x, z), x)
+            z = self.square(z)
+            b = self.select(flag, self.mul(b, z), b)
+        return x
 
     # --- host conversions -------------------------------------------------------
     def from_int(self, x, batch_shape=None):
@@ -100,6 +151,13 @@ class PrimeField(Field):
         n = int(np.prod(batch_shape)) if batch_shape else 1
         vals = [rng.randrange(self.spec.modulus) for _ in range(n)]
         return self.from_int(np.asarray(vals, dtype=object).reshape(batch_shape or ()))
+
+    def from_le_bytes_mod_order(self, data: bytes):
+        """Bytes (little-endian) -> field element, reduced on the host."""
+        return self.from_int(int.from_bytes(data, "little") % self.spec.modulus)
+
+    def from_be_bytes_mod_order(self, data: bytes):
+        return self.from_int(int.from_bytes(data, "big") % self.spec.modulus)
 
     # canonical (non-Montgomery) limb access, for serialization
     def to_canonical_limbs(self, a):

@@ -1,11 +1,11 @@
 """Builds and loads the CUDA kernels.
 
 The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into
-shared libraries with a plain C interface, one per 32-bit word count
-(``-DMONT_W=8|12|24``), and loaded with ``ctypes``.  A library is built the
-first time a CUDA tensor needs it; importing this module needs neither
-``nvcc`` nor CUDA.  File names carry a hash of the sources, so an edited
-source never meets a stale library.
+shared libraries with a plain C interface, one per source file and 32-bit
+word count (``-DMONT_W=8|12|24``), and loaded with ``ctypes``.  A library is
+built the first time a CUDA tensor needs it; importing this module needs
+neither ``nvcc`` nor CUDA.  File names carry a hash of all the sources, so
+an edited source never meets a stale library.
 """
 
 from __future__ import annotations
@@ -20,10 +20,11 @@ import time
 from .. import config
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-_SOURCES = ("mont_kernels.cu", "mont.cuh")
+KERNEL_SOURCES = ("mont_kernels", "inverse_kernels")  # one library each
+_HEADERS = ("mont.cuh", "launch.cuh")
 WORD_COUNTS = (8, 12, 24)
 
-_libs: dict[int, ctypes.CDLL] = {}
+_libs: dict[tuple[str, int], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -39,27 +40,27 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in _SOURCES:
+    for name in [f"{src}.cu" for src in KERNEL_SOURCES] + list(_HEADERS):
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:12]
 
 
-def library_path(words: int) -> str:
-    return os.path.join(config.build_dir, f"libmont_w{words}_{_source_hash()}.so")
+def library_path(source: str, words: int) -> str:
+    return os.path.join(config.build_dir, f"lib{source}_w{words}_{_source_hash()}.so")
 
 
-def _start_build(words: int) -> tuple[subprocess.Popen, str, str]:
+def _start_build(source: str, words: int) -> tuple[subprocess.Popen, str, str]:
     """Start one nvcc; returns (process, temporary output, final path)."""
-    if words not in WORD_COUNTS:
-        raise ValueError(f"no kernel instance for {words} words")
+    if source not in KERNEL_SOURCES or words not in WORD_COUNTS:
+        raise ValueError(f"no kernel instance of {source} for {words} words")
     os.makedirs(config.build_dir, exist_ok=True)
-    final = library_path(words)
+    final = library_path(source, words)
     tmp = f"{final}.{os.getpid()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         f"-DMONT_W={words}", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-        "-o", tmp, os.path.join(_CSRC, "mont_kernels.cu"),
+        "-o", tmp, os.path.join(_CSRC, f"{source}.cu"),
     ]
     log = open(final + ".log", "wb")
     try:
@@ -82,7 +83,8 @@ def build_all(word_counts=WORD_COUNTS) -> float:
     Returns the seconds spent."""
     t0 = time.time()
     jobs = [
-        _start_build(w) for w in word_counts if not os.path.exists(library_path(w))
+        _start_build(src, w) for src in KERNEL_SOURCES for w in word_counts
+        if not os.path.exists(library_path(src, w))
     ]
     errors = []
     for job in jobs:  # wait for every compiler, then report the first failure
@@ -95,36 +97,52 @@ def build_all(word_counts=WORD_COUNTS) -> float:
     return time.time() - t0
 
 
-def build_log(words: int) -> str:
+def build_log(source: str, words: int) -> str:
     """What nvcc/ptxas printed for this library (registers, spills)."""
-    with open(library_path(words) + ".log", "r", errors="replace") as f:
+    with open(library_path(source, words) + ".log", "r", errors="replace") as f:
         return f.read()
 
 
-def library(words: int) -> ctypes.CDLL:
-    """The loaded kernel library for ``words`` 32-bit words per element,
-    built first if it is not there."""
-    lib = _libs.get(words)
+def _signatures() -> dict[str, dict[str, list]]:
+    """Argument types of every launcher, by source.  Each library also has
+    ``<prefix>_words()``, which returns the word count it was built for."""
+    vp, sz, ci, u32 = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_uint32
+    words_p = ctypes.POINTER(ctypes.c_uint32)
+    return {
+        "mont_kernels": {
+            "mont_words": [],
+            "mont_mul_launch": [vp, sz, sz, vp, sz, sz, vp, sz, words_p, u32, vp],
+            "butterfly_launch": [
+                vp, vp, vp, vp, sz, sz, ci, ci, ci, vp, sz, sz, words_p, u32, vp,
+            ],
+        },
+        "inverse_kernels": {
+            "inverse_words": [],
+            "inv_prefix_launch": [vp, vp, vp, sz, sz, ci, words_p, u32, words_p, vp],
+            "inv_backward_launch": [
+                vp, vp, vp, vp, sz, sz, ci, words_p, u32, words_p, vp,
+            ],
+            "inv_fermat_launch": [vp, vp, sz, words_p, ci, words_p, u32, vp],
+        },
+    }
+
+
+def library(source: str, words: int) -> ctypes.CDLL:
+    """The loaded library of ``source`` for ``words`` 32-bit words per
+    element, built first if it is not there."""
+    lib = _libs.get((source, words))
     if lib is not None:
         return lib
-    path = library_path(words)
+    path = library_path(source, words)
     if not os.path.exists(path):
-        _finish_build(*_start_build(words))
+        _finish_build(*_start_build(source, words))
     lib = ctypes.CDLL(path)
-
-    vp, sz, ci = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int
-    words_p = ctypes.POINTER(ctypes.c_uint32)
-    lib.mont_words.argtypes = []
-    lib.mont_words.restype = ci
-    lib.mont_mul_launch.argtypes = [
-        vp, sz, sz, vp, sz, sz, vp, sz, words_p, ctypes.c_uint32, vp,
-    ]
-    lib.mont_mul_launch.restype = ci
-    lib.butterfly_launch.argtypes = [
-        vp, vp, vp, vp, sz, sz, ci, ci, ci, vp, sz, sz, words_p, ctypes.c_uint32, vp,
-    ]
-    lib.butterfly_launch.restype = ci
-    if lib.mont_words() != words:
-        raise RuntimeError(f"{path} was built for {lib.mont_words()} words, not {words}")
-    _libs[words] = lib
+    for name, argtypes in _signatures()[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    built_for = getattr(lib, source.split("_")[0] + "_words")()
+    if built_for != words:
+        raise RuntimeError(f"{path} was built for {built_for} words, not {words}")
+    _libs[(source, words)] = lib
     return lib

@@ -7,9 +7,10 @@ values stay below 2^16, so the sign bit of int32 never matters.  Binary ops
 auto-align mixed batch ranks by inserting singleton axes right after the
 limb axis (the limb-major analogue of right-aligned broadcasting).
 
-``mul`` and ``square`` go through the CUDA kernel for CUDA tensors and
-through its plain version for CPU tensors (``ops/mont_kernels.py``);
-``add``/``sub``/``neg`` are plain tensor code on either device.
+``mul``, ``square`` and ``batch_inverse`` go through the CUDA kernels for
+CUDA tensors and through their plain versions for CPU tensors
+(``ops/mont_kernels.py``); ``add``/``sub``/``neg`` are plain tensor code on
+either device.
 """
 
 from __future__ import annotations
@@ -164,6 +165,25 @@ def pow_fixed(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
 def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Montgomery-form inverse via Fermat's little theorem; inv(0) = 0."""
     return pow_fixed(spec, a, spec.modulus - 2)
+
+
+def batch_inverse(spec: FieldSpec, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Inverse of every element of a [L, *batch] value, zero to zero, by
+    blocked batched inversion: about three products an element and one
+    short ladder (``mont_kernels.batch_inverse``).
+
+    The reference has two of these, a scan along one batch axis and a
+    blocked one over the flattened batch.  Inverses are unique and
+    canonical, so this one serves both: it inverts every element whatever
+    ``axis`` (a batch axis, as in the reference) is, and the argument stays
+    so that call sites read the same."""
+    batch_ndim = a.ndim - 1
+    if batch_ndim and not -batch_ndim <= axis < batch_ndim:
+        raise ValueError(f"axis {axis} out of range for batch shape {tuple(a.shape[1:])}")
+    if a.numel() == 0:
+        return a.clone()
+    flat = a.reshape(a.shape[0], -1).contiguous()
+    return mont_kernels.batch_inverse(spec, flat).reshape(a.shape)
 
 
 def mul_by_u32(spec: FieldSpec, a: torch.Tensor, k: int) -> torch.Tensor:

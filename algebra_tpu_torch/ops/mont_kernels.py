@@ -1,7 +1,9 @@
 """The CUDA field kernels: wrappers, plain versions, launch counters.
 
-Counterpart of the JAX package's ``ops/mont_pallas.py`` for the NTT path.
-Two kernels, both CUDA C++ (``csrc/mont.cuh``, ``csrc/mont_kernels.cu``):
+Counterpart of the JAX package's ``ops/mont_pallas.py``.  Five kernels, all
+CUDA C++ over the device functions of ``csrc/mont.cuh``: two for the NTT
+path (``csrc/mont_kernels.cu``) and three for batched inversion
+(``csrc/inverse_kernels.cu``):
 
 ``mont_mul``  (wrapper ``mul``)
     Replaces the TPU kernel ``_mul_kernel`` (``ops/mont_pallas.py:189``,
@@ -31,6 +33,33 @@ Two kernels, both CUDA C++ (``csrc/mont.cuh``, ``csrc/mont_kernels.cu``):
     stage moves the array once and nothing else.  Fusing several stages
     per launch in shared memory is the next step, not taken here.
 
+``inv_prefix``, ``inv_fermat``, ``inv_backward``  (run by ``batch_inverse``)
+    Replace the TPU kernels ``_prefix_kernel``, ``_fermat_kernel`` and
+    ``_backward_kernel`` (``ops/mont_pallas.py:207``, ``:238``, ``:221``,
+    run by ``batch_inverse`` :325): Montgomery's trick in blocks, about
+    three products an element and one short ladder, whatever n.  A level
+    sees its n elements as G rows of m = ceil(n / G) consecutive elements;
+    one thread walks one column.  ``inv_prefix`` writes the running
+    products down every column and the column totals, which are the next
+    level's batch; at the bottom ``inv_fermat`` raises at most
+    ``INV_BOTTOM`` elements to p - 2 (one thread each, the exponent a
+    launch constant, a dedicated squaring ``mont_sq``); ``inv_backward``
+    unwinds a level with two products an element.  Bounds: the prefix
+    kernel must read a and write the prefixes (2 * L * 4 bytes an element),
+    the backward kernel must read a and the prefixes and write the inverses
+    (3 * L * 4 bytes), each for one and two products an element, so device
+    memory bounds both; the ladder is a chain of ~1.5 * bits(p) dependent
+    products on few threads, so its bound is operations and its time is
+    that chain's latency.  The TPU version's 128-lane rows, groups of at
+    most 32 and the one-row bottom are its tile, not the mathematics:
+    here a level is one flat [G, m] view of the whole array, so a warp
+    reads a row contiguously, two levels reach 2^24 elements, and the
+    bottom is wide enough to put a block on every multiprocessor.  The
+    reference pads with ones by concatenation and masks zeros with
+    whole-array selects before and after; here the kernels read an element
+    past the end, or a zero, as one, and write zero where the input was
+    zero, so nothing but the arrays named above touches memory.
+
 Dispatch has no switch: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises.  The plain versions do the same
 arithmetic on 16-bit limbs in int64 and are device-agnostic, so they can
@@ -50,7 +79,17 @@ from ..fields.spec import FieldSpec
 
 # Number of kernel launches, by kernel.  A wrapper adds one where it
 # launches its kernel and nowhere else.
-launches = {"mont_mul": 0, "butterfly": 0}
+launches = {"mont_mul": 0, "butterfly": 0, "inv_prefix": 0, "inv_fermat": 0,
+            "inv_backward": 0}
+
+# Blocked inversion: a level folds at most INV_GROUP rows into one, and
+# levels are added until at most INV_BOTTOM elements are left for the
+# ladder.  16384 elements are one 128-thread block for each of the card's
+# multiprocessors: the ladder's time is the latency of its chain of
+# products up to about that width, so a narrower bottom would save nothing
+# and cost a level.
+INV_GROUP = 32
+INV_BOTTOM = 16384
 
 
 def reset_launches() -> None:
@@ -170,6 +209,80 @@ def butterfly_stage_major_plain(spec: FieldSpec, x: torch.Tensor,
     return out.reshape(L, n1, B)
 
 
+def _one_mont(spec: FieldSpec, like: torch.Tensor) -> torch.Tensor:
+    """[L, 1] limbs of one in Montgomery form, on ``like``'s device."""
+    one = torch.tensor(spec.one_mont_limbs.astype("int64"), dtype=like.dtype,
+                       device=like.device)
+    return one.reshape(spec.n_limbs, 1)
+
+
+def _rows(x: torch.Tensor, group: int, m: int, fill: torch.Tensor) -> torch.Tensor:
+    """x [L, n] as [L, group, m] rows of m consecutive elements, the end
+    filled with ``fill`` [L, 1]."""
+    L, n = x.shape
+    pad = group * m - n
+    if pad:
+        x = torch.cat([x, fill.expand(L, pad)], dim=1)
+    return x.reshape(L, group, m)
+
+
+def inv_prefix_plain(spec: FieldSpec, a: torch.Tensor, group: int):
+    """Running products down the ``group`` rows of a [L, n] seen as rows of
+    m = ceil(n / group) consecutive elements, a zero element counting as
+    one: (prefixes [L, n], column totals [L, m])."""
+    n = a.shape[1]
+    m = _columns(n, group)
+    one = _one_mont(spec, a)
+    safe = torch.where((a == 0).all(dim=0), one, a)
+    rows = _rows(safe, group, m, one)
+    acc = [rows[:, 0]]
+    for i in range(1, group):
+        acc.append(mul_plain(spec, acc[-1], rows[:, i]))
+    pref = torch.stack(acc, dim=1).reshape(a.shape[0], group * m)[:, :n]
+    return pref.contiguous(), acc[-1].contiguous()
+
+
+def inv_backward_plain(spec: FieldSpec, a: torch.Tensor, pref: torch.Tensor,
+                       tinv: torch.Tensor, group: int) -> torch.Tensor:
+    """Element inverses [L, n] from the inverses ``tinv`` [L, m] of the
+    column totals: two products a row, from the last row up; zero where
+    ``a`` is zero."""
+    n = a.shape[1]
+    m = tinv.shape[1]
+    one = _one_mont(spec, a)
+    zero_mask = (a == 0).all(dim=0)
+    rows = _rows(torch.where(zero_mask, one, a), group, m, one)
+    prows = _rows(pref, group, m, one)
+    out = [None] * group
+    running = tinv
+    for i in range(group - 1, 0, -1):
+        out[i] = mul_plain(spec, running, prows[:, i - 1])
+        running = mul_plain(spec, running, rows[:, i])
+    out[0] = running
+    flat = torch.stack(out, dim=1).reshape(a.shape[0], group * m)[:, :n]
+    return torch.where(zero_mask, torch.zeros_like(flat), flat)
+
+
+def inv_fermat_plain(spec: FieldSpec, a: torch.Tensor, exponent: int | None = None):
+    """a^exponent (p - 2 when None) by square and multiply over the
+    exponent's bits, most significant first; zero goes to zero."""
+    e = _check_exponent(spec, exponent)
+    res = a
+    for bit in bin(e)[3:]:
+        res = mul_plain(spec, res, res)
+        if bit == "1":
+            res = mul_plain(spec, res, a)
+    return res
+
+
+def batch_inverse_plain(spec: FieldSpec, a: torch.Tensor, group: int = INV_GROUP,
+                        bottom: int = INV_BOTTOM) -> torch.Tensor:
+    """``batch_inverse`` on the plain versions of its three kernels (any
+    device)."""
+    return _blocked_inverse(spec, a, group, bottom, inv_prefix_plain,
+                            inv_fermat_plain, inv_backward_plain)
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
@@ -178,6 +291,13 @@ def butterfly_stage_major_plain(spec: FieldSpec, x: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _p_words_arg(spec: FieldSpec):
     return (ctypes.c_uint32 * spec.n_words)(*spec.p_words)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_words_arg(spec: FieldSpec):
+    one = spec.R % spec.modulus
+    return (ctypes.c_uint32 * spec.n_words)(
+        *[(one >> (32 * k)) & 0xFFFFFFFF for k in range(spec.n_words)])
 
 
 def _check_elems(spec: FieldSpec, *tensors: torch.Tensor) -> torch.device:
@@ -239,7 +359,7 @@ def mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     a_t, a_ls, a_bs = _mul_operand(a, shape, n, L)
     b_t, b_ls, b_bs = _mul_operand(b, shape, n, L)
-    lib = build.library(spec.n_words)
+    lib = build.library("mont_kernels", spec.n_words)
     with torch.cuda.device(device):
         code = lib.mont_mul_launch(
             a_t.data_ptr(), a_ls, a_bs, b_t.data_ptr(), b_ls, b_bs,
@@ -255,7 +375,7 @@ def _launch_butterfly(spec, device, lo_ptr, hi_ptr, olo_ptr, ohi_ptr, ls, n_pair
                       span_log2, pitch_log2, b_log2, w):
     from ..kernels import build
 
-    lib = build.library(spec.n_words)
+    lib = build.library("mont_kernels", spec.n_words)
     with torch.cuda.device(device):
         code = lib.butterfly_launch(
             lo_ptr, hi_ptr, olo_ptr, ohi_ptr, ls, n_pairs, span_log2, pitch_log2,
@@ -322,3 +442,154 @@ def butterfly_stage_major(spec: FieldSpec, x: torch.Tensor,
         span_log2 + 1, b_log2, w,
     )
     return out
+
+
+# --------------------------------------------------------------------------
+# blocked batched inversion
+# --------------------------------------------------------------------------
+
+
+def _check_exponent(spec: FieldSpec, exponent: int | None) -> int:
+    e = spec.modulus - 2 if exponent is None else int(exponent)
+    if not 1 <= e < 1 << (32 * spec.n_words):
+        raise ValueError(f"exponent must be in [1, 2^{32 * spec.n_words})")
+    return e
+
+
+def _check_flat(spec: FieldSpec, a: torch.Tensor, *others) -> torch.device:
+    device = _check_elems(spec, a, *others)
+    if a.ndim != 2 or a.shape[1] < 1:
+        raise ValueError(f"expected a non-empty [L, n] batch, got {tuple(a.shape)}")
+    return device
+
+
+def _columns(n: int, group: int) -> int:
+    """Columns m = ceil(n / group) of n elements seen as ``group`` rows."""
+    if group < 1:
+        raise ValueError(f"group must be at least 1, got {group}")
+    return -(-n // group)
+
+
+def level_plan(n: int, group: int = INV_GROUP, bottom: int = INV_BOTTOM):
+    """The levels of a blocked inversion of n elements, top first, as
+    (elements, rows, columns): each level folds ``rows`` rows into one and
+    hands ``columns`` totals to the next, until at most ``bottom`` are left
+    for the ladder.  A level takes no more rows than it needs to get there."""
+    if group < 2 or bottom < 1:
+        raise ValueError("group must be at least 2 and bottom at least 1")
+    plan = []
+    while n > bottom:
+        rows = min(group, -(-n // bottom))
+        cols = -(-n // rows)
+        plan.append((n, rows, cols))
+        n = cols
+    return plan
+
+
+def inv_prefix(spec: FieldSpec, a: torch.Tensor, group: int):
+    """Running products down the ``group`` rows of a [L, n] (rows of
+    m = ceil(n / group) consecutive elements; a zero counts as one).
+    Returns (prefixes [L, n], column totals [L, m])."""
+    device = _check_flat(spec, a)
+    n = a.shape[1]
+    m = _columns(n, group)
+    if device.type == "cpu":
+        return inv_prefix_plain(spec, a, group)
+    from ..kernels import build
+
+    _require_contiguous("a", a)
+    pref = torch.empty_like(a)
+    tails = torch.empty((spec.n_limbs, m), dtype=torch.int32, device=device)
+    lib = build.library("inverse_kernels", spec.n_words)
+    with torch.cuda.device(device):
+        code = lib.inv_prefix_launch(
+            a.data_ptr(), pref.data_ptr(), tails.data_ptr(), n, m, group,
+            _p_words_arg(spec), spec.inv32, _one_words_arg(spec),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    launches["inv_prefix"] += 1
+    _raise_on_error(code, "inv_prefix")
+    return pref, tails
+
+
+def inv_backward(spec: FieldSpec, a: torch.Tensor, pref: torch.Tensor,
+                 tinv: torch.Tensor, group: int) -> torch.Tensor:
+    """Inverses [L, n] of ``a`` from its prefixes (``inv_prefix``) and the
+    inverses ``tinv`` [L, m] of its column totals; zero where a is zero."""
+    device = _check_flat(spec, a, pref, tinv)
+    n = a.shape[1]
+    m = _columns(n, group)
+    if pref.shape != a.shape or tuple(tinv.shape) != (spec.n_limbs, m):
+        raise ValueError(
+            f"inv_backward takes a, pref [L, {n}] and tinv [L, {m}], got "
+            f"{tuple(pref.shape)} and {tuple(tinv.shape)}")
+    if device.type == "cpu":
+        return inv_backward_plain(spec, a, pref, tinv, group)
+    from ..kernels import build
+
+    for name, t in (("a", a), ("pref", pref), ("tinv", tinv)):
+        _require_contiguous(name, t)
+    out = torch.empty_like(a)
+    lib = build.library("inverse_kernels", spec.n_words)
+    with torch.cuda.device(device):
+        code = lib.inv_backward_launch(
+            a.data_ptr(), pref.data_ptr(), tinv.data_ptr(), out.data_ptr(), n, m,
+            group, _p_words_arg(spec), spec.inv32, _one_words_arg(spec),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    launches["inv_backward"] += 1
+    _raise_on_error(code, "inv_backward")
+    return out
+
+
+def inv_fermat(spec: FieldSpec, a: torch.Tensor, exponent: int | None = None):
+    """Per-element inverse a^(p-2) of a [L, n], zero to zero: one thread an
+    element, one launch.  The kernel is a ladder over a launch-constant
+    exponent; another ``exponent`` than p - 2 is for holding it against
+    other code (2 runs the dedicated squaring alone)."""
+    device = _check_flat(spec, a)
+    e = _check_exponent(spec, exponent)
+    if device.type == "cpu":
+        return inv_fermat_plain(spec, a, e)
+    from ..kernels import build
+
+    _require_contiguous("a", a)
+    out = torch.empty_like(a)
+    e_words = (ctypes.c_uint32 * spec.n_words)(
+        *[(e >> (32 * k)) & 0xFFFFFFFF for k in range(spec.n_words)])
+    lib = build.library("inverse_kernels", spec.n_words)
+    with torch.cuda.device(device):
+        code = lib.inv_fermat_launch(
+            a.data_ptr(), out.data_ptr(), a.shape[1], e_words, e.bit_length(),
+            _p_words_arg(spec), spec.inv32,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    launches["inv_fermat"] += 1
+    _raise_on_error(code, "inv_fermat")
+    return out
+
+
+def _blocked_inverse(spec, a, group, bottom, prefix, fermat, backward):
+    stack = []
+    cur = a
+    for _, rows, _ in level_plan(a.shape[1], group, bottom):
+        pref, tails = prefix(spec, cur, rows)
+        stack.append((cur, pref, rows))
+        cur = tails
+    inv = fermat(spec, cur)
+    while stack:
+        lvl, pref, rows = stack.pop()
+        inv = backward(spec, lvl, pref, inv, rows)
+    return inv
+
+
+def batch_inverse(spec: FieldSpec, a: torch.Tensor, group: int = INV_GROUP,
+                  bottom: int = INV_BOTTOM) -> torch.Tensor:
+    """Inverse of every element of a [L, n] (Montgomery form), zero to
+    zero: ``inv_prefix`` down the levels of ``level_plan``, one
+    ``inv_fermat`` at the bottom, ``inv_backward`` up again.  Bit-identical
+    to a per-element ladder, since inverses are unique and canonical.
+    ``group`` and ``bottom`` shape the levels, not the result."""
+    _check_flat(spec, a)
+    return _blocked_inverse(spec, a, group, bottom, inv_prefix, inv_fermat,
+                            inv_backward)

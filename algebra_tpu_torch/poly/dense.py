@@ -4,7 +4,8 @@ Coefficients are a batched field value whose leading batch axis is the
 coefficient index (ascending degree).  Evaluation is a powers-of-x inner
 product; products go through evaluation domains (FFT mul) when the field
 has one and a schoolbook convolution otherwise; division by a vanishing
-polynomial is the O(n) special case.  Long division is not here yet.
+polynomial is the O(n) special case; long division is a host loop over
+the quotient's coefficients.
 
 There is no trailing-zero truncation invariant on the device;
 ``degree()`` reports the array degree and ``truncated()`` returns a
@@ -116,6 +117,27 @@ class DensePolynomial:
         return F.sum(terms, axis=0)
 
     # ------------------------------------------------------------- division
+    def divide_with_q_and_r(self, divisor: "DensePolynomial"):
+        """Long division: (quotient, remainder) with self = q * divisor + r
+        and r shorter than the divisor.  One step of the host loop per
+        quotient coefficient, from the top; the divisor's leading
+        coefficient must not be zero."""
+        F = self.field
+        n, m = self.num_coeffs, divisor.num_coeffs
+        if n < m:
+            return DensePolynomial.zero(F, 1), self
+        d_lead_inv = F.inverse(F.index(divisor.coeffs, m - 1))
+        rem = self.coeffs.clone()
+        q_parts = []
+        for k in range(n - m, -1, -1):
+            qk = F.mul(F.index(rem, k + m - 1), d_lead_inv)
+            q_parts.append(qk)
+            sub_term = F.mul(divisor.coeffs, F.broadcast_to(qk, (m,)))
+            rem[:, k : k + m] = F.sub(F.index(rem, slice(k, k + m)), sub_term)
+        q = F.stack(q_parts[::-1], axis=0)
+        r = F.index(rem, slice(0, m - 1)) if m > 1 else F.zero((1,))
+        return DensePolynomial(F, q), DensePolynomial(F, r)
+
     def divide_by_vanishing_poly(self, domain):
         """O(n) synthetic division by Z_H = x^n - h^n.
 

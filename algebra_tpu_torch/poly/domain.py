@@ -5,7 +5,8 @@ tables on its field's device; fft/ifft are staged butterfly pipelines over
 limb tensors (the trailing axis is the coefficient index).
 
 Supported: radix-2 subgroups and cosets (inputs shorter than the domain
-are zero-padded), vanishing polynomials, element tables.
+are zero-padded), vanishing polynomials, element tables, and all Lagrange
+coefficients at a point (one batched inversion).
 GeneralEvaluationDomain picks the radix-2 domain when the field has one;
 mixed-radix domains are not here yet.
 """
@@ -136,6 +137,28 @@ class Radix2EvaluationDomain:
     def vanishing_polynomial(self):
         """Sparse representation [(degree, coeff_int)] of x^n - h^n."""
         return [(self.size, 1), (0, (-self.offset_pow_size) % self.spec.modulus)]
+
+    # ------------------------------------------------- Lagrange coefficients
+    def evaluate_all_lagrange_coefficients(self, tau: torch.Tensor) -> torch.Tensor:
+        """[L, size] of L_i(tau) for one point tau (a [L] element): O(n)
+        with one batched inversion.  A tau inside the domain gives the
+        exact one-hot row."""
+        spec, F = self.spec, self.field
+        n = self.size
+        g_pows = ntt.powers_from_int(spec, self.group_gen, n, F.device)
+        elements = g_pows
+        if self.offset != 1:
+            elements = mont.mul(spec, g_pows, F.constant(self.offset))
+        u = mont.sub(spec, tau.reshape(spec.n_limbs, 1), elements)  # tau - h g^i
+        in_domain = mont.is_zero(spec, u)
+        if bool(in_domain.any()):
+            return mont.select(in_domain, F.one((n,)), F.zero((n,)))
+        u_inv = mont.batch_inverse(spec, u, axis=0)
+        # L_i(tau) = Z(tau) g^i / (n h^(n-1) (tau - h g^i)), Z(tau) = tau^n - h^n
+        z_tau = self.evaluate_vanishing_polynomial(tau)
+        c = (self.size_inv * pow(self.offset_inv, n - 1, spec.modulus)) % spec.modulus
+        scale = mont.mul(spec, z_tau, F.constant(c))
+        return mont.mul(spec, mont.mul(spec, g_pows, scale), u_inv)
 
     # --------------------------------------------------------------- misc API
     def reindex_by_subdomain(self, other_size: int, index: int) -> int:

@@ -1,6 +1,7 @@
 """Evaluation-form univariate polynomials over a domain: a field value
 batch over the domain's elements (natural order), with pointwise
-arithmetic and ``interpolate`` via the domain's ifft.
+arithmetic (``div`` through the field's batched inversion) and
+``interpolate`` via the domain's ifft.
 """
 
 from __future__ import annotations
@@ -35,6 +36,15 @@ class Evaluations:
     def sub(self, other: "Evaluations") -> "Evaluations":
         return Evaluations(
             self.field, self.domain, self.field.sub(self.evals, other.evals)
+        )
+
+    def div(self, other: "Evaluations") -> "Evaluations":
+        """Pointwise quotient: one batched inversion of ``other`` and one
+        multiply.  Where ``other`` is zero the result is zero."""
+        return Evaluations(
+            self.field,
+            self.domain,
+            self.field.mul(self.evals, self.field.inverse(other.evals)),
         )
 
     def interpolate(self):

@@ -11,9 +11,13 @@ csrc``, (2) holds each kernel against its plain PyTorch version on the
 card and against a host big-integer oracle, (3) runs the flagship step —
 ``entry.poly_product`` over BLS12-381 Fr through a 2^24-point domain — and
 checks the result exactly, (4) repeats it at 2^16 and 2^10 (staged path,
-coset, short inputs).  Every comparison is bit-exact (tolerance 0: outputs
-are canonical integers).  One JSON object per line; the last line is
-``{"ok": true, "device": {...}}``.
+coset, short inputs), (5) runs the division path — ``entry.poly_quotient``
+at 2^24 must give back the factor a product was made from, through the
+blocked batched inversion — and checks the inversion on its own, (6) runs
+the short paths over the same kernels (Lagrange coefficients, long
+division, square roots).  Every comparison is bit-exact (tolerance 0:
+outputs are canonical integers).  One JSON object per line; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -218,7 +222,7 @@ def check_main_shapes(spec, rng, device, log_n):
     from algebra_tpu_torch import convert
     from algebra_tpu_torch.ops import mont_kernels as mk
 
-    L, W = spec.n_limbs, spec.n_words
+    L = spec.n_limbs
     n = 1 << log_n
     n1 = 1 << (log_n // 2)
     n2 = n // n1
@@ -233,11 +237,9 @@ def check_main_shapes(spec, rng, device, log_n):
     _, plain_ms = wall_ms(lambda: mk.mul_plain(spec, a, b))
     ms1 = time_ms(lambda: mk.mul(spec, a, b), 10)
     bytes1 = 3 * L * 4 * n
-    mads1 = (2 * W * W + W) * n
+    mads1 = mads_per_product(spec) * n
     k1 = {
         "mismatches": bad1, "max_abs_err": err1, "ms": ms1, "plain_ms": plain_ms,
-        "bound_bytes_ms": bytes1 / PEAK_BYTES_PER_S * 1e3,
-        "bound_ops_ms": mads1 / PEAK_INT32_MAD_PER_S * 1e3,
         "shape": [L, n],
     }
 
@@ -268,19 +270,211 @@ def check_main_shapes(spec, rng, device, log_n):
     }
     pairs = n // 2
     bytes5 = (4 * pairs + n2 // 2) * L * 4  # lo, hi in; lo, hi out; twiddles once
-    mads5 = (2 * W * W + W) * pairs
+    mads5 = mads_per_product(spec) * pairs
     k5 = {
         "mismatches": bad5, "max_abs_err": err5, "ms": ms5, "plain_ms": plain5,
         "ms_by_half": per_stage,
-        "bound_bytes_ms": bytes5 / PEAK_BYTES_PER_S * 1e3,
-        "bound_ops_ms": mads5 / PEAK_INT32_MAD_PER_S * 1e3,
         "shape": [L, n2, n1],
     }
-    for k in (k1, k5):
-        k["bound_ms"] = max(k["bound_bytes_ms"], k["bound_ops_ms"])
-        k["bound_by"] = ("bytes" if k["bound_bytes_ms"] >= k["bound_ops_ms"]
-                         else "operations")
-    return k1, k5
+    return with_bound(k1, bytes1, mads1), with_bound(k5, bytes5, mads5)
+
+
+def mads_per_product(spec) -> int:
+    """32-bit multiply-adds of one Montgomery product of W words."""
+    W = spec.n_words
+    return 2 * W * W + W
+
+
+def mads_per_square(spec) -> int:
+    """The same for the dedicated squaring."""
+    W = spec.n_words
+    return W * (W + 1) // 2 + W * W + W
+
+
+def with_bound(k: dict, n_bytes: int, mads: int) -> dict:
+    """Add the least time the card could take: the larger of the bytes that
+    must move over the memory rate and the multiply-adds over their peak."""
+    k["bound_bytes_ms"] = n_bytes / PEAK_BYTES_PER_S * 1e3
+    k["bound_ops_ms"] = mads / PEAK_INT32_MAD_PER_S * 1e3
+    k["bound_ms"] = max(k["bound_bytes_ms"], k["bound_ops_ms"])
+    k["bound_by"] = ("bytes" if k["bound_bytes_ms"] >= k["bound_ops_ms"]
+                     else "operations")
+    return k
+
+
+def inverse_oracle(spec, a_np: np.ndarray, lanes) -> list:
+    """Host big-integer inverses, in Montgomery form, of the given lanes of
+    a Montgomery-form limb array; zero for zero."""
+    p = spec.modulus
+    r_inv = pow(spec.R, -1, p)
+    vals = limbs_to_ints(np.ascontiguousarray(a_np[:, lanes]))
+    return [pow(x * r_inv % p, -1, p) * spec.R % p if x else 0 for x in vals]
+
+
+def inverse_defects(spec, a: torch.Tensor, inv: torch.Tensor) -> int:
+    """Number of lanes where ``inv`` is not the inverse of ``a``: the
+    Montgomery product a * inv must be one where a is not zero, and inv
+    must be zero where a is."""
+    from algebra_tpu_torch.ops import mont, mont_kernels as mk
+
+    zero = (a == 0).all(dim=0)
+    one = mont.bconst(spec.one_mont_limbs, (1,), a.device)
+    want = torch.where(zero, torch.zeros_like(one), one)
+    prod = mk.mul(spec, a, inv)
+    bad = ((prod != want).any(dim=0) & ~zero) | ((inv != 0).any(dim=0) & zero)
+    return int(bad.sum().item())
+
+
+def check_inverse_kernels(spec, rng, device):
+    """K2-K4 for one field.  The dedicated squaring against the product
+    a * a; each kernel against its plain version on ragged shapes with
+    planted zeros; the whole inversion on every lane (a * inv == 1, zero to
+    zero) and against a host big-integer oracle on 64 lanes, for ragged n,
+    with the levels the port uses and with small ones that fold a short
+    batch several times."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.bigint import batch_int_to_limbs
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    p, L = spec.modulus, spec.n_limbs
+
+    def planted(n, everywhere=False):
+        a = random_limbs(spec, n, rng)
+        if everywhere:
+            a[:] = 0
+        else:
+            a[:, 0] = 0
+            a[:, n - 1] = 0
+            a[:, 128:200] = 0  # a whole block of lanes, where n reaches it
+        return a
+
+    edge = batch_int_to_limbs([0, 1, p - 1, spec.R % p], L)
+    a = convert.from_reference(
+        np.concatenate([edge, random_limbs(spec, (1 << 16) + 33, rng)], axis=1), device)
+    sq_bad, sq_err = mismatches(mk.inv_fermat(spec, a, 2), mk.mul(spec, a, a))
+    sq_n = int(a.shape[1])
+
+    single = []
+    for n, group in [(4097, 5), (260, 32)]:
+        a = convert.from_reference(planted(n), device)
+        pref, tails = mk.inv_prefix(spec, a, group)
+        p_pref, p_tails = mk.inv_prefix_plain(spec, a, group)
+        bad2 = mismatches(pref, p_pref)[0] + mismatches(tails, p_tails)[0]
+        tinv = mk.inv_fermat(spec, tails)
+        bad3 = mismatches(tinv, mk.inv_fermat_plain(spec, tails))[0] if n == 4097 else None
+        out = mk.inv_backward(spec, a, pref, tinv, group)
+        bad4 = mismatches(out, mk.inv_backward_plain(spec, a, pref, tinv, group))[0]
+        single.append({"n": n, "group": group, "columns": int(tails.shape[1]),
+                       "prefix_mismatches": bad2, "fermat_mismatches": bad3,
+                       "backward_mismatches": bad4})
+
+    whole = []
+    shapes = [(n, False) for n in (1, 127, 260, 4097, (1 << 16) + 3)] + [(260, True)]
+    for n, everywhere in shapes:
+        a_np = planted(n, everywhere)
+        a = convert.from_reference(a_np, device)
+        lanes = sorted(set(range(min(n, 32))) | set(range(max(n - 32, 0), n)))
+        want = inverse_oracle(spec, a_np, lanes)
+        for group, bottom in [(mk.INV_GROUP, mk.INV_BOTTOM), (4, 64)]:
+            got = mk.batch_inverse(spec, a, group, bottom)
+            got_lanes = limbs_to_ints(convert.to_reference(got[:, lanes]))
+            whole.append({
+                "n": n, "zeros": "everywhere" if everywhere else "first,last,block",
+                "levels": len(mk.level_plan(n, group, bottom)),
+                "mismatches": inverse_defects(spec, a, got),
+                "oracle_lanes": len(lanes),
+                "oracle_mismatches": sum(g != w for g, w in zip(got_lanes, want)),
+            })
+    torch.cuda.synchronize()
+    return {"field": spec.name, "words": spec.n_words,
+            "mont_sq": {"n": sq_n, "mismatches": sq_bad, "max_abs_err": sq_err},
+            "single_kernels": single, "batch_inverse": whole}
+
+
+def inverse_case_failures(case: dict) -> list:
+    bad = [case["mont_sq"]] if case["mont_sq"]["mismatches"] else []
+    bad += [c for c in case["single_kernels"]
+            if c["prefix_mismatches"] or c["fermat_mismatches"] or c["backward_mismatches"]]
+    bad += [c for c in case["batch_inverse"] if c["mismatches"] or c["oracle_mismatches"]]
+    return bad
+
+
+def check_inverse_main_shapes(spec, rng, device, log_n):
+    """K2, K3 and K4 at the shapes the division path gives them (the top
+    level of a 2^log_n inversion, and its bottom), against their plain
+    versions, with times and bounds; and every level's kernel times."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    L = spec.n_limbs
+    n = 1 << log_n
+    a_np = random_limbs(spec, n, rng)
+    a_np[:, rng.integers(0, n, size=1000)] = 0
+    a_np[:, [0, n - 1]] = 0
+    a = convert.from_reference(a_np, device)
+    del a_np
+    plan = mk.level_plan(n)
+
+    # down: every level's input, prefixes and group size
+    levels, cur = [], a
+    for _, rows, _ in plan:
+        pref, tails = mk.inv_prefix(spec, cur, rows)
+        levels.append((cur, pref, rows))
+        cur = tails
+    bottom = cur
+    tinv_bottom = mk.inv_fermat(spec, bottom)
+    # up: every level's tail inverses
+    tinvs, inv = [None] * len(levels), tinv_bottom
+    for i in range(len(levels) - 1, -1, -1):
+        tinvs[i] = inv
+        inv = mk.inv_backward(spec, levels[i][0], levels[i][1], inv, levels[i][2])
+    out = inv
+    defects = inverse_defects(spec, a, out)
+
+    _, pref, rows = levels[0]
+    m = -(-n // rows)
+    tails = levels[1][0] if len(levels) > 1 else bottom
+    (p_pref, p_tails), plain2 = wall_ms(lambda: mk.inv_prefix_plain(spec, a, rows))
+    bad2 = mismatches(pref, p_pref)
+    bad2t = mismatches(tails, p_tails)
+    del p_pref, p_tails
+    p_out, plain4 = wall_ms(lambda: mk.inv_backward_plain(spec, a, pref, tinvs[0], rows))
+    bad4 = mismatches(out, p_out)
+    del p_out
+    p_tinv, plain3 = wall_ms(lambda: mk.inv_fermat_plain(spec, bottom))
+    bad3 = mismatches(tinv_bottom, p_tinv)
+    del p_tinv, out
+
+    level_ms = []
+    for (lvl, pr, g), ti in zip(levels, tinvs):
+        level_ms.append({
+            "n": int(lvl.shape[1]), "rows": g,
+            "prefix_ms": time_ms(lambda: mk.inv_prefix(spec, lvl, g), 5),
+            "backward_ms": time_ms(lambda: mk.inv_backward(spec, lvl, pr, ti, g), 5),
+        })
+    fermat_ms = time_ms(lambda: mk.inv_fermat(spec, bottom), 5)
+
+    nb = bottom.shape[1]
+    e = spec.modulus - 2
+    products = (rows - 1) * m  # one a column in every row but the first
+    k2 = with_bound(
+        {"mismatches": bad2[0] + bad2t[0], "max_abs_err": max(bad2[1], bad2t[1]),
+         "ms": level_ms[0]["prefix_ms"], "plain_ms": plain2, "shape": [L, n],
+         "rows": rows},
+        (2 * n + m) * L * 4, products * mads_per_product(spec))
+    k4 = with_bound(
+        {"mismatches": bad4[0] + defects, "max_abs_err": bad4[1],
+         "ms": level_ms[0]["backward_ms"], "plain_ms": plain4, "shape": [L, n],
+         "rows": rows},
+        (3 * n + m) * L * 4, 2 * products * mads_per_product(spec))
+    k3 = with_bound(
+        {"mismatches": bad3[0], "max_abs_err": bad3[1], "ms": fermat_ms,
+         "plain_ms": plain3, "shape": [L, nb],
+         "chain_products": (e.bit_length() - 1) + (bin(e).count("1") - 1)},
+        2 * nb * L * 4,
+        nb * ((e.bit_length() - 1) * mads_per_square(spec)
+              + (bin(e).count("1") - 1) * mads_per_product(spec)))
+    return k2, k3, k4, {"levels": level_ms, "fermat_n": nb, "fermat_ms": fermat_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +522,9 @@ def run_main_path(device, rng, gpu):
     # (d) launches the path implies: two root tables of n/2 powers by
     # doubling, three transforms (each LOG_MAIN butterfly stages and one
     # twiddle multiply), the pointwise product, the 1/n scaling
-    want_counts = {"mont_mul": 2 * (LOG_MAIN - 1) + 3 + 2, "butterfly": 3 * LOG_MAIN}
+    # and no inversion kernel
+    want_counts = {**dict.fromkeys(counts, 0),
+                   "mont_mul": 2 * (LOG_MAIN - 1) + 3 + 2, "butterfly": 3 * LOG_MAIN}
     if counts != want_counts:
         raise AssertionError(f"launch counts {counts}, expected {want_counts}")
     if tuple(c.shape) != (spec.n_limbs, n) or c.dtype != torch.int32:
@@ -410,6 +606,162 @@ def run_small_paths(device, rng, gpu):
     return {"phase": "small_path", "field": spec.name, "passed": done, "gpu": gpu}
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the division path and the short paths over its kernels
+# ---------------------------------------------------------------------------
+
+
+def run_inverse_path(device, rng, gpu, log_n, level_times):
+    """``poly_quotient(poly_product(q, d), d) == q`` through a 2^log_n
+    coset, the inversion alone on a random batch with planted zeros, and
+    the blocked inversion against the per-element ladder at 2^20."""
+    from algebra_tpu_torch import convert, entry
+    from algebra_tpu_torch.curves.instances import bls12_381
+    from algebra_tpu_torch.ops import mont, mont_kernels as mk
+
+    spec = bls12_381.fr_spec
+    F = bls12_381.Fr.to(device)
+    n = 1 << log_n
+    q = convert.from_reference(random_limbs(spec, n // 2, rng), device)
+    d = convert.from_reference(random_limbs(spec, n // 2, rng), device)
+    num = entry.poly_product(q, d, device=device)
+
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launches()
+    quo, quotient_ms = wall_ms(lambda: entry.poly_quotient(num, d, device=device))
+    counts = dict(mk.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    # launches the path implies: two root tables (log_n - 1 doublings each);
+    # the coset's power table (log_n doublings), its scaling and the
+    # four-step twiddle multiply for each of three transforms; the
+    # pointwise multiply; the 1/n scaling; log_n butterfly stages a
+    # transform; and the inversion's own level plan
+    plan = mk.level_plan(n)
+    want_counts = {"mont_mul": 2 * (log_n - 1) + 3 * (log_n + 2) + 2,
+                   "butterfly": 3 * log_n, "inv_prefix": len(plan),
+                   "inv_fermat": 1, "inv_backward": len(plan)}
+    if counts != want_counts:
+        raise AssertionError(f"launch counts {counts}, expected {want_counts}")
+    if not plan:
+        raise AssertionError("the division path is too short to fold a level")
+    if tuple(quo.shape) != (spec.n_limbs, n) or quo.dtype != torch.int32:
+        raise AssertionError(f"quotient has shape {tuple(quo.shape)} {quo.dtype}")
+    if not torch.equal(quo[:, : n // 2], q):
+        raise AssertionError("poly_quotient(poly_product(q, d), d) != q")
+    if bool(quo[:, n // 2 :].any()):
+        raise AssertionError("the quotient's upper half is not zero")
+    del quo, num, q, d
+
+    # the inversion alone, through the field kind
+    a_np = random_limbs(spec, n, rng)
+    a_np[:, rng.integers(0, n, size=1000)] = 0
+    a_np[:, [0, n - 1]] = 0
+    a = convert.from_reference(a_np, device)
+    del a_np
+    inv = F.inverse(a)
+    defects = inverse_defects(spec, a, inv)
+    if defects:
+        raise AssertionError(f"a * inverse(a) != 1 on {defects} lanes")
+    del inv
+    inverse_ms = time_ms(lambda: F.inverse(a), 5)
+
+    # the blocked inversion against the route it replaces
+    small = a[:, : 1 << 20].contiguous()
+    mk.reset_launches()
+    old = mont.inv(spec, small)
+    ladder_launches = mk.launches["mont_mul"]
+    if not torch.equal(mont.batch_inverse(spec, small), old):
+        raise AssertionError("batch_inverse differs from the per-element ladder")
+    ladder_ms = time_ms(lambda: mont.inv(spec, small), 2)
+    blocked_ms = time_ms(lambda: mont.batch_inverse(spec, small), 5)
+
+    # why the level constants are what they are: the inversion alone at 2^22
+    # for rows per level x bottom width around the port's choice
+    mid = a[:, : 1 << 22].contiguous()
+    sweep = {f"{group}x{bottom}": time_ms(
+        lambda: mk.batch_inverse(spec, mid, group, bottom), 5)
+        for group in (16, 32, 64) for bottom in (4096, 16384, 65536)}
+    torch.cuda.synchronize()
+    return counts, {
+        "phase": "inverse_path", "field": spec.name, "log_n": log_n,
+        "checks": ["quotient_recovers_factor", "upper_half_zero", "launch_counts",
+                   "a_times_inverse_is_one", "zero_to_zero",
+                   "blocked_equals_ladder_at_2^20"],
+        "launches": counts, "level_plan": plan, "poly_quotient_ms": quotient_ms,
+        "inverse_ms": inverse_ms, "inversions_per_s": n / (inverse_ms * 1e-3),
+        **level_times, "peak_memory_bytes": peak,
+        "at_2^20": {"ladder_ms": ladder_ms, "ladder_launches": ladder_launches,
+                    "blocked_ms": blocked_ms},
+        "level_constants": [mk.INV_GROUP, mk.INV_BOTTOM],
+        "ms_at_2^22_by_group_x_bottom": sweep,
+        "gpu": gpu,
+    }
+
+
+def run_small_inverse_paths(device, rng, gpu):
+    """The short paths over the same kernels: all Lagrange coefficients at
+    2^16, long division, square roots and Legendre symbols."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.curves.instances import bls12_381
+    from algebra_tpu_torch.ops import mont_kernels as mk
+    from algebra_tpu_torch.poly.dense import DensePolynomial
+    from algebra_tpu_torch.poly.domain import Radix2EvaluationDomain
+
+    done = []
+    spec = bls12_381.fr_spec
+    F = bls12_381.Fr.to(device)
+
+    def rand(n):
+        return convert.from_reference(random_limbs(spec, n, rng), device)
+
+    n = 1 << 16
+    domain = Radix2EvaluationDomain(F, n).get_coset(5)
+    tau = rand(1)[:, 0].contiguous()
+    mk.reset_launches()
+    li = domain.evaluate_all_lagrange_coefficients(tau)
+    if not all(mk.launches[k] > 0 for k in ("inv_prefix", "inv_fermat", "inv_backward")):
+        raise AssertionError(f"Lagrange coefficients skipped a kernel: {mk.launches}")
+    if not torch.equal(F.sum(li, axis=0), F.one()):
+        raise AssertionError("the Lagrange coefficients do not sum to one")
+    poly = DensePolynomial(F, rand(n))
+    by_lagrange = F.sum(F.mul(li, domain.fft(poly.coeffs)), axis=0)
+    if not torch.equal(by_lagrange, poly.evaluate(tau)):
+        raise AssertionError("sum L_i(tau) p(x_i) != p(tau)")
+    inside = domain.evaluate_all_lagrange_coefficients(F.constant(domain.element(777)))
+    one_hot = F.zero((n,))
+    one_hot[:, 777] = F.one()
+    if not torch.equal(inside, one_hot):
+        raise AssertionError("tau inside the domain does not give the one-hot row")
+    done.append("lagrange 2^16 coset")
+
+    q, d, r = rand(40), rand(24), rand(23)
+    num = DensePolynomial(F, q).naive_mul(DensePolynomial(F, d)).add(DensePolynomial(F, r))
+    got_q, got_r = num.divide_with_q_and_r(DensePolynomial(F, d))
+    if not (torch.equal(got_q.coeffs, q) and torch.equal(got_r.coeffs, r)):
+        raise AssertionError("long division does not recover quotient and remainder")
+    done.append("divide_with_q_and_r 63 / 24")
+
+    for field, non_residue in ((F, 5), (bls12_381.Fq.to(device), 2)):
+        fp = field.spec.modulus
+        x = convert.from_reference(random_limbs(field.spec, 61, rng), device)
+        squares = field.square(x)
+        a = torch.cat([squares, field.zero((1,)),
+                       field.mul(squares[:, :2], field.constant(non_residue))], dim=1)
+        if pow(non_residue, (fp - 1) // 2, fp) != fp - 1:
+            raise AssertionError(f"{non_residue} is a square in {field.name}")
+        if field.legendre(a).tolist() != [1] * 61 + [0] + [-1] * 2:
+            raise AssertionError(f"legendre is wrong in {field.name}")
+        ok, root = field.sqrt(a)
+        if ok.tolist() != [True] * 62 + [False] * 2:
+            raise AssertionError(f"sqrt's mask is wrong in {field.name}")
+        if not torch.equal(field.square(root)[:, :62], a[:, :62]):
+            raise AssertionError(f"sqrt's roots do not square back in {field.name}")
+        done.append(f"sqrt/legendre {field.name} ({field.spec.sqrt_mode})")
+    torch.cuda.synchronize()
+    return {"phase": "small_inverse_path", "passed": done, "gpu": gpu}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -426,21 +778,23 @@ def main() -> int:
     build_s = build.build_all()
     emit({"phase": "device", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
-          "ptxas": {str(w): [ln for ln in build.build_log(w).splitlines()
-                             if "registers" in ln or "spill" in ln]
-                    for w in build.WORD_COUNTS}})
+          "ptxas": {f"{src}_w{w}": [ln for ln in build.build_log(src, w).splitlines()
+                                    if "registers" in ln or "spill" in ln]
+                    for src in build.KERNEL_SOURCES for w in build.WORD_COUNTS}})
 
     fr = bls12_381.fr_spec
     # the three fields in use, and a modulus with no spare top bit, where the
     # final subtraction has to look at the carry word
     full_width = field_spec(2**256 - 189, name="full_width_256")
-    cases = [check_mul_kernel(s, rng, device)
-             for s in (fr, bls12_381.fq_spec, mnt4_753.fq_spec, full_width)]
+    specs = (fr, bls12_381.fq_spec, mnt4_753.fq_spec, full_width)
+    cases = [check_mul_kernel(s, rng, device) for s in specs]
     k5_cases = check_butterfly_kernel(fr, rng, device)
+    inv_cases = [check_inverse_kernels(s, rng, device) for s in specs]
     emit({"phase": "kernel_cases", "mont_mul": cases, "butterfly": k5_cases,
-          "gpu": gpu})
+          "inverse": inv_cases, "gpu": gpu})
     failed = [c for c in cases if c["mismatches"] or c["oracle_mismatches"]]
     failed += [c for c in k5_cases if c["mismatches"]]
+    failed += [c for case in inv_cases for c in inverse_case_failures(case)]
     if failed:
         raise AssertionError(f"kernel disagrees with its plain version: {failed}")
 
@@ -448,20 +802,36 @@ def main() -> int:
     if k1["mismatches"] or k5["mismatches"]:
         raise AssertionError(f"kernel disagrees at the main shape: {k1} {k5}")
 
+    k2, k3, k4, level_times = check_inverse_main_shapes(fr, rng, device, LOG_MAIN)
+    if k2["mismatches"] or k3["mismatches"] or k4["mismatches"]:
+        raise AssertionError(f"kernel disagrees at the main shape: {k2} {k3} {k4}")
+
     counts, main_line = run_main_path(device, rng, gpu)
     emit(main_line)
     emit(run_small_paths(device, rng, gpu))
+    inv_counts, inverse_line = run_inverse_path(device, rng, gpu, LOG_MAIN, level_times)
+    emit(inverse_line)
+    emit(run_small_inverse_paths(device, rng, gpu))
 
-    common = {"route": "cuda", "source": "algebra_tpu_torch/csrc/mont_kernels.cu",
-              "library_ms": None, "gpu": gpu}
+    # launches: K1 and K5 as the product path counted them, K2-K4 as the
+    # division path did (which also ran K1 and K5: see its own line)
+    ntt_src = {"route": "cuda", "source": "algebra_tpu_torch/csrc/mont_kernels.cu",
+               "library_ms": None, "gpu": gpu}
+    inv_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/inverse_kernels.cu"}
+    rows = [
+        ("mont_mul", "algebra_tpu/ops/mont_pallas.py:189", counts, k1, ntt_src),
+        ("butterfly", "algebra_tpu/ops/mont_pallas.py:417", counts, k5, ntt_src),
+        ("inv_prefix", "algebra_tpu/ops/mont_pallas.py:207", inv_counts, k2, inv_src),
+        ("inv_fermat", "algebra_tpu/ops/mont_pallas.py:238", inv_counts, k3, inv_src),
+        ("inv_backward", "algebra_tpu/ops/mont_pallas.py:221", inv_counts, k4, inv_src),
+    ]
     emit({"kernels": [
-        {"name": "mont_mul", "replaces": "algebra_tpu/ops/mont_pallas.py:189",
-         "launches": counts["mont_mul"], "kernel_ms": k1["ms"], **k1, **common},
-        {"name": "butterfly", "replaces": "algebra_tpu/ops/mont_pallas.py:417",
-         "launches": counts["butterfly"], "kernel_ms": k5["ms"], **k5, **common},
-    ]})
-    if not (counts["mont_mul"] > 0 and counts["butterfly"] > 0):
-        raise AssertionError(f"the main path launched no kernel: {counts}")
+        {"name": name, "replaces": replaces, "launches": path_counts[name],
+         "kernel_ms": k["ms"], **k, **src}
+        for name, replaces, path_counts, k, src in rows]})
+    idle = [name for name, _, path_counts, _, _ in rows if path_counts[name] <= 0]
+    if idle:
+        raise AssertionError(f"a path launched no kernel of: {idle}")
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

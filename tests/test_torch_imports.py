@@ -63,9 +63,13 @@ def test_no_source_file_imports_jax():
 
 def test_kernel_sources_are_in_the_package():
     csrc = os.path.join(REPO, "algebra_tpu_torch", "csrc")
-    assert {"mont.cuh", "mont_kernels.cu"} <= set(os.listdir(csrc))
     from algebra_tpu_torch.kernels import build
 
-    # one library per word count, named after a hash of the sources
-    paths = {build.library_path(w) for w in build.WORD_COUNTS}
-    assert len(paths) == 3 and all("_build" in p for p in paths)
+    sources = {f"{src}.cu" for src in build.KERNEL_SOURCES}
+    assert sources == {"mont_kernels.cu", "inverse_kernels.cu"}
+    assert sources | {"mont.cuh", "launch.cuh"} <= set(os.listdir(csrc))
+    # one library per source and word count, named after a hash of the sources
+    paths = {build.library_path(src, w)
+             for src in build.KERNEL_SOURCES for w in build.WORD_COUNTS}
+    assert len(paths) == 6 and all("_build" in p for p in paths)
+    assert set(build._signatures()) == set(build.KERNEL_SOURCES)
