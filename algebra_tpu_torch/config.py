@@ -18,5 +18,11 @@ default_device: str = "cuda"
 # ``ops/mont.inv``.
 inverse_min_batch: int = 2
 
+# MSM bucket phase.  False: the lockstep Jacobian mixed-add rounds (kernel
+# K8), which is what the JAX package runs on any backend but a TPU.  The
+# sorted-run affine halving tree (kernels K9-K16) is the next slice of the
+# port; until then ``ops/msm.msm`` raises if this is set.
+msm_affine_tree: bool = False
+
 # Where the CUDA sources are compiled to shared libraries at first use.
 build_dir: str = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")

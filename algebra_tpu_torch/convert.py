@@ -10,10 +10,14 @@ stored format can change later without touching them.
 
 What crosses: field-element arrays (``from_reference``/``to_reference``),
 which is all that the inputs and outputs of the field layer, batched
-inversion, the polynomial classes and both entry points are; and a
-domain's twiddle tables (``domain_from_reference``).  Masks and int8
-results (``is_zero``, ``legendre``, ``sqrt``'s ok) compare as plain numpy
-arrays and need nothing here.
+inversion, the polynomial classes and the polynomial entry points are;
+curve points (``points_from_reference``/``points_to_reference``): affine
+``(x, y, inf)`` triples with a bool mask and Jacobian ``(x, y, z)``
+triples, the inputs and outputs of the group law, the MSM and
+``entry.g1_msm``; and a domain's twiddle tables
+(``domain_from_reference``).  Other masks and int8 results (``is_zero``,
+``legendre``, ``sqrt``'s ok) compare as plain numpy arrays and need
+nothing here.
 """
 
 from __future__ import annotations
@@ -38,6 +42,30 @@ def to_reference(t: torch.Tensor) -> np.ndarray:
     """int32 limb tensor (any device) -> numpy uint32 [L, *batch]."""
     a = t.detach().cpu().contiguous().numpy()
     return a.view(np.uint32)
+
+
+def points_from_reference(pt, device=None) -> tuple:
+    """An affine (x, y, inf) or Jacobian (x, y, z) triple of reference
+    arrays (or tensors) -> a triple of tensors on ``device``: limb arrays
+    as ``from_reference``, a bool inf mask as a bool tensor."""
+    device = torch.device(device if device is not None else config.default_device)
+    return tuple(_coord_from_reference(c, device) for c in pt)
+
+
+def points_to_reference(pt) -> tuple:
+    """A triple of tensors -> numpy: limb arrays as ``to_reference``, a
+    bool mask as a numpy bool array."""
+    return tuple(c.detach().cpu().numpy() if c.dtype == torch.bool else to_reference(c)
+                 for c in pt)
+
+
+def _coord_from_reference(c, device: torch.device) -> torch.Tensor:
+    if isinstance(c, torch.Tensor):
+        return c.to(device)
+    a = np.asarray(c)
+    if a.dtype == np.bool_:
+        return torch.from_numpy(a.copy()).to(device)
+    return from_reference(a, device)
 
 
 def domain_from_reference(field: PrimeField, size: int, offset, roots,

@@ -1,4 +1,4 @@
-"""The port's entry points: polynomial product and exact quotient.
+"""The port's entry points: polynomial product, exact quotient, G1 MSM.
 
 ``poly_product`` is the counterpart of the JAX package's flagship step
 (BLS12-381 Fr: fft, fft, pointwise multiply, inverse fft, scale by 1/n) —
@@ -18,6 +18,7 @@ import torch
 
 from . import config, convert
 from .curves.instances import bls12_381
+from .ops import msm
 from .poly.dense import DensePolynomial
 from .poly.domain import Radix2EvaluationDomain
 from .poly.evaluations import Evaluations
@@ -64,13 +65,33 @@ def poly_quotient(num, den, device=None) -> torch.Tensor:
     return num_e.div(den_e).interpolate().coeffs
 
 
-def _field_on(device, caller: str):
-    """BLS12-381 Fr on ``device`` (``config.default_device`` when None);
-    there is no fallback to another device."""
+def g1_msm(bases, scalars, device=None):
+    """sum_i scalars[i] * bases[i] over BLS12-381 G1.
+
+    bases: the affine triple in the reference's format, (x, y, inf): x, y
+    uint32 [24, n] Montgomery-form Fq limbs, inf bool [n] (numpy arrays or
+    tensors).  scalars: uint32 [16, n] canonical limbs, each below r.
+    Returns the Jacobian point (x, y, z), int32 [24] each, on ``device``.
+    Same device rule as ``poly_product``.
+    """
+    device = _device_for(device, "g1_msm")
+    curve = bls12_381.g1(device)
+    return msm.msm(curve, convert.points_from_reference(bases, device),
+                   _as_tensor(scalars, device))
+
+
+def _device_for(device, caller: str) -> torch.device:
+    """``device`` (``config.default_device`` when None); there is no
+    fallback to another device."""
     device = torch.device(device if device is not None else config.default_device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{caller}(device='cuda') needs a CUDA device")
-    return bls12_381.Fr.to(device)
+    return device
+
+
+def _field_on(device, caller: str):
+    """BLS12-381 Fr on ``device``, by the rule of ``_device_for``."""
+    return bls12_381.Fr.to(_device_for(device, caller))
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:

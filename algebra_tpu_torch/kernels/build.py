@@ -20,8 +20,8 @@ import time
 from .. import config
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-KERNEL_SOURCES = ("mont_kernels", "inverse_kernels")  # one library each
-_HEADERS = ("mont.cuh", "launch.cuh")
+KERNEL_SOURCES = ("mont_kernels", "inverse_kernels", "sw_kernels")  # one library each
+_HEADERS = ("mont.cuh", "launch.cuh", "sw.cuh")
 WORD_COUNTS = (8, 12, 24)
 
 _libs: dict[tuple[str, int], ctypes.CDLL] = {}
@@ -78,23 +78,30 @@ def _finish_build(proc: subprocess.Popen, tmp: str, final: str) -> None:
     os.replace(tmp, final)
 
 
-def build_all(word_counts=WORD_COUNTS) -> float:
+def build_all(word_counts=WORD_COUNTS) -> dict[str, float]:
     """Build every missing library, all compilers started together.
-    Returns the seconds spent."""
+    Returns the seconds from the start until each library was built, by
+    ``<source>_w<words>``."""
     t0 = time.time()
-    jobs = [
-        _start_build(src, w) for src in KERNEL_SOURCES for w in word_counts
+    jobs = {
+        f"{src}_w{w}": _start_build(src, w) for src in KERNEL_SOURCES for w in word_counts
         if not os.path.exists(library_path(src, w))
-    ]
+    }
+    done: dict[str, float] = {}
+    while len(done) < len(jobs):  # wait for every compiler
+        for name, (proc, _, _) in jobs.items():
+            if name not in done and proc.poll() is not None:
+                done[name] = time.time() - t0
+        time.sleep(0.1)
     errors = []
-    for job in jobs:  # wait for every compiler, then report the first failure
+    for job in jobs.values():  # then report the first failure
         try:
             _finish_build(*job)
         except RuntimeError as e:
             errors.append(e)
     if errors:
         raise errors[0]
-    return time.time() - t0
+    return done
 
 
 def build_log(source: str, words: int) -> str:
@@ -123,6 +130,13 @@ def _signatures() -> dict[str, dict[str, list]]:
                 vp, vp, vp, vp, sz, sz, ci, words_p, u32, words_p, vp,
             ],
             "inv_fermat_launch": [vp, vp, sz, words_p, ci, words_p, u32, vp],
+        },
+        "sw_kernels": {
+            "sw_words": [],
+            "jac_double_launch": [vp, sz, sz] * 3 + [vp, vp, vp, sz, words_p, u32, vp],
+            "jac_add_launch": [vp, sz, sz] * 6 + [vp, vp, vp, sz, words_p, u32, vp],
+            "jac_madd_launch": [vp, sz, sz] * 5 + [vp, sz, vp, vp, vp, sz, words_p, u32,
+                                                   words_p, vp],
         },
     }
 

@@ -77,10 +77,11 @@ import torch
 from ..bigint import LIMB_BITS, LIMB_MASK
 from ..fields.spec import FieldSpec
 
-# Number of kernel launches, by kernel.  A wrapper adds one where it
+# Number of kernel launches, by kernel, for this module's kernels and the
+# group-law kernels of ``ops/sw_kernels.py``.  A wrapper adds one where it
 # launches its kernel and nowhere else.
 launches = {"mont_mul": 0, "butterfly": 0, "inv_prefix": 0, "inv_fermat": 0,
-            "inv_backward": 0}
+            "inv_backward": 0, "jac_double": 0, "jac_add": 0, "jac_madd": 0}
 
 # Blocked inversion: a level folds at most INV_GROUP rows into one, and
 # levels are added until at most INV_BOTTOM elements are left for the
@@ -113,28 +114,65 @@ def _modulus(spec: FieldSpec, like: torch.Tensor) -> torch.Tensor:
     return p.reshape((spec.n_limbs,) + (1,) * (like.ndim - 1))
 
 
+# Carries: a batch of up to this many lanes resolves them with one scan over
+# the limbs (a dozen whole-array operations, ``_carries_in``), a larger one
+# limb by limb (``_chain``: 3 L operations on single limbs, the least memory
+# traffic).  The scan saves per-operation cost where the batch is small (the
+# group law's narrow steps, the CPU); the chain keeps the wide arrays of the
+# NTT path to the fewest bytes.
+SCAN_MAX_LANES = 1 << 16
+
+
+def _scan(v: torch.Tensor) -> bool:
+    return v[0].numel() <= SCAN_MAX_LANES
+
+
+def _chain(v: torch.Tensor):
+    """Limb values of any size and sign -> (16-bit limbs, the carry out of
+    the top limb), limb by limb (an arithmetic shift carries a borrow as
+    -1)."""
+    out = torch.empty_like(v)
+    carry = torch.zeros_like(v[0])
+    for k in range(v.shape[0]):
+        x = v[k] + carry
+        out[k] = x & LIMB_MASK
+        carry = x >> LIMB_BITS
+    return out, carry
+
+
+def _carries_in(gen: torch.Tensor, prop: torch.Tensor) -> torch.Tensor:
+    """The 0/1 carry into every limb of a limb-wise sum, none into limb 0,
+    and the carry out of the top limb, as [L + 1, *batch] of ``gen``'s
+    dtype.  gen/prop: limb k makes a carry whatever comes in / passes on
+    the one that comes in.  The carry out of limb k is gen[j] for the last
+    j <= k that does not pass its carry on: a running maximum over the
+    code 2 j + 2 + gen[j] (0 where limb j passes) finds it for every limb
+    at once."""
+    L = gen.shape[0]
+    pos = torch.arange(2, 2 * L + 2, 2, dtype=torch.int32, device=gen.device)
+    pos = pos.reshape((L,) + (1,) * (gen.ndim - 1))
+    code = torch.where(prop, 0, pos + gen.to(torch.int32))
+    out = (torch.cummax(code, dim=0).values & 1).to(gen.dtype)
+    return torch.cat([torch.zeros_like(out[:1]), out], dim=0)
+
+
 def _add_limbs(a: torch.Tensor, b: torch.Tensor):
     """(a + b) over 16-bit limbs -> (sum limbs, carry in {0,1})."""
     s = a + b
-    out = torch.empty_like(s)
-    carry = torch.zeros_like(s[0])
-    for k in range(s.shape[0]):
-        v = s[k] + carry
-        out[k] = v & LIMB_MASK
-        carry = v >> LIMB_BITS
-    return out, carry
+    if not _scan(s):
+        return _chain(s)
+    c = _carries_in(s >> LIMB_BITS, s == LIMB_MASK)
+    return (s + c[:-1]) & LIMB_MASK, c[-1]
 
 
 def _sub_limbs(a: torch.Tensor, b: torch.Tensor):
     """(a - b) over 16-bit limbs -> (difference limbs, borrow in {0,1})."""
     d = a - b
-    out = torch.empty_like(d)
-    borrow = torch.zeros_like(d[0])
-    for k in range(d.shape[0]):
-        v = d[k] - borrow
-        out[k] = v & LIMB_MASK
-        borrow = (v >> LIMB_BITS) & 1
-    return out, borrow
+    if not _scan(d):
+        out, carry = _chain(d)
+        return out, -carry
+    c = _carries_in((d < 0).to(d.dtype), d == 0)
+    return (d - c[:-1]) & LIMB_MASK, c[-1]
 
 
 def _cond_sub_modulus(spec: FieldSpec, x: torch.Tensor, carry: torch.Tensor):
@@ -163,9 +201,14 @@ def mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     Schoolbook columns accumulate lazily (a column holds at most L products
     of 32 bits, < 2^38 for L <= 48), the interleaved reduction clears one
     limb per round with m = cols[i] * inv16 mod 2^16, and carries are
-    resolved once at the end.  a, b: int32 [L, *batch], shapes broadcast."""
+    resolved once at the end (for a scan: three rounds that move every
+    column's bits above 16 into the next column leave each at most 2^16,
+    since the columns stay below 2^39 for L <= 48).  a, b: int32
+    [L, *batch], shapes broadcast."""
     L = spec.n_limbs
-    batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    batch = a.shape[1:]
+    if b.shape[1:] != batch:
+        batch = torch.broadcast_shapes(batch, b.shape[1:])
     a64 = a.to(torch.int64)
     b64 = b.to(torch.int64)
     cols = torch.zeros((2 * L,) + tuple(batch), dtype=torch.int64, device=a.device)
@@ -177,13 +220,16 @@ def mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
         m = ((cols[i] & LIMB_MASK) * inv) & LIMB_MASK
         cols[i : i + L] += m * p64
         cols[i + 1] += cols[i] >> LIMB_BITS
-    res = torch.empty((L,) + tuple(batch), dtype=torch.int64, device=a.device)
-    carry = torch.zeros_like(res[0])
-    for k in range(L):
-        v = cols[L + k] + carry
-        res[k] = v & LIMB_MASK
-        carry = v >> LIMB_BITS
-    return _cond_sub_modulus(spec, res, carry).to(torch.int32)
+    v = cols[L:]
+    if not _scan(v):
+        return _cond_sub_modulus(spec, *_chain(v)).to(torch.int32)
+    top = torch.zeros_like(v[0])
+    for _ in range(3):
+        hi = v >> LIMB_BITS
+        top += hi[-1]
+        v = (v & LIMB_MASK) + torch.cat([torch.zeros_like(hi[:1]), hi[:-1]], dim=0)
+    c = _carries_in(v >> LIMB_BITS, v == LIMB_MASK)
+    return _cond_sub_modulus(spec, (v + c[:-1]) & LIMB_MASK, top + c[-1]).to(torch.int32)
 
 
 def butterfly_stage_plain(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor,

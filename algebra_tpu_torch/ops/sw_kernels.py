@@ -1,0 +1,312 @@
+"""The CUDA group-law kernels: wrappers, plain versions.
+
+Counterpart of the Jacobian half of the JAX package's ``ops/sw_pallas.py``.
+Three kernels, CUDA C++ over the device functions of ``csrc/sw.cuh``
+(``csrc/sw_kernels.cu``), for short-Weierstrass curves with a = 0 over a
+prime field:
+
+``jac_double``  (wrapper ``double``)
+    Replaces ``_double_kernel`` (``ops/sw_pallas.py:111``, wrapper
+    ``double`` :567): dbl-2009-l, 5 squarings and 2 products a lane;
+    infinity falls out as Z3 = 0.
+``jac_add``  (wrapper ``add``)
+    Replaces ``_add_kernel`` (``sw_pallas.py:120``, wrapper ``add`` :616):
+    add-2007-bl, 5 squarings and 11 products for the generic sum; P = Q
+    goes to the doubling, then Q = inf gives P, then P = inf gives Q.
+``jac_madd``  (wrapper ``madd``)
+    Replaces ``_madd_kernel`` (``sw_pallas.py:56``, wrapper ``madd`` :596):
+    madd-2007-bl, Jacobian P plus affine Q with an infinity flag, 4
+    squarings and 7 products for the generic sum; the same selects, and
+    P = inf gives from_affine(Q).
+
+A lane branches where the TPU selects: an infinity lane copies, a P = Q
+lane computes the doubling instead of the rest of the sum; the results are
+the selects' results bit for bit (``csrc/sw.cuh``).  The reference pads
+every batch to a bucketed width and broadcasts operands by copying; here a
+bound in the grid-stride loop covers a ragged n, and every input coordinate
+is read through a limb stride and a lane stride, so a broadcast element, a
+strided slice of the weighted reduction or the MSM's point-major gathered
+rows go in without a copy.  Where each kernel's time goes, and its bound,
+is in ``PERF.md``.
+
+Dispatch has no switch: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises.  The plain versions compose the field
+kernels' plain versions (``mont_kernels.mul_plain``, ``add_plain``,
+``sub_plain``) in the kernels' formulas and select like the reference,
+and run on any device.  Launch counts are kept in ``mont_kernels.launches``
+beside the field kernels' (``jac_double``, ``jac_add``, ``jac_madd``), so
+one ``reset_launches()`` clears them all.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..fields.spec import FieldSpec
+from . import mont_kernels as mk
+from .mont_kernels import launches
+
+# --------------------------------------------------------------------------
+# plain versions (any device)
+# --------------------------------------------------------------------------
+
+
+_add, _sub, _mul = mk.add_plain, mk.sub_plain, mk.mul_plain
+
+
+def _sq(spec, a):
+    return _mul(spec, a, a)
+
+
+def _dbl(spec, a):
+    return _add(spec, a, a)
+
+
+def _is_zero(a: torch.Tensor) -> torch.Tensor:
+    return (a == 0).all(dim=0)
+
+
+def _sel(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """mask over the batch, a and b limb-major [L, *batch]."""
+    return torch.where(mask, a, b)
+
+
+def _one(spec: FieldSpec, like: torch.Tensor) -> torch.Tensor:
+    """1 in Montgomery form as [L, 1, ...], broadcastable against ``like``."""
+    return mk._one_mont(spec, like).reshape((spec.n_limbs,) + (1,) * (like.ndim - 1))
+
+
+def double_plain(spec: FieldSpec, x1, y1, z1):
+    """dbl-2009-l (a = 0) on limb-major coordinates (shapes broadcast)."""
+    A = _sq(spec, x1)
+    Bv = _sq(spec, y1)
+    C = _sq(spec, Bv)
+    t = _add(spec, x1, Bv)
+    D = _dbl(spec, _sub(spec, _sub(spec, _sq(spec, t), A), C))
+    E = _add(spec, _dbl(spec, A), A)
+    F = _sq(spec, E)
+    X3 = _sub(spec, F, _dbl(spec, D))
+    Y3 = _sub(spec, _mul(spec, E, _sub(spec, D, X3)),
+               _dbl(spec, _dbl(spec, _dbl(spec, C))))
+    Z3 = _dbl(spec, _mul(spec, y1, z1))
+    return X3, Y3, Z3
+
+
+def add_plain(spec: FieldSpec, x1, y1, z1, x2, y2, z2):
+    """add-2007-bl with the reference's selects, branchless: the generic sum
+    and the doubling in every lane, then P = Q, Q = inf, P = inf."""
+    Z1Z1 = _sq(spec, z1)
+    Z2Z2 = _sq(spec, z2)
+    U1 = _mul(spec, x1, Z2Z2)
+    U2 = _mul(spec, x2, Z1Z1)
+    S1 = _mul(spec, y1, _mul(spec, z2, Z2Z2))
+    S2 = _mul(spec, y2, _mul(spec, z1, Z1Z1))
+    H = _sub(spec, U2, U1)
+    r = _dbl(spec, _sub(spec, S2, S1))
+    I = _sq(spec, _dbl(spec, H))
+    J = _mul(spec, H, I)
+    V = _mul(spec, U1, I)
+    X3 = _sub(spec, _sub(spec, _sq(spec, r), J), _dbl(spec, V))
+    Y3 = _sub(spec, _mul(spec, r, _sub(spec, V, X3)),
+               _dbl(spec, _mul(spec, S1, J)))
+    zs = _add(spec, z1, z2)
+    Z3 = _mul(spec, _sub(spec, _sub(spec, _sq(spec, zs), Z1Z1), Z2Z2), H)
+
+    Xd, Yd, Zd = double_plain(spec, x1, y1, z1)
+    same = _is_zero(H) & _is_zero(r)
+    q_inf = _is_zero(z2)
+    p_inf = _is_zero(z1)
+    out = []
+    for c3, cd, c1, c2 in ((X3, Xd, x1, x2), (Y3, Yd, y1, y2), (Z3, Zd, z1, z2)):
+        c3 = _sel(same, cd, c3)
+        c3 = _sel(q_inf, c1, c3)
+        out.append(_sel(p_inf, c2, c3))
+    return tuple(out)
+
+
+def madd_plain(spec: FieldSpec, x1, y1, z1, x2, y2, inf2):
+    """madd-2007-bl (P Jacobian, Q = (x2, y2) affine, ``inf2`` its bool
+    infinity mask over the batch) with the reference's selects, branchless."""
+    Z1Z1 = _sq(spec, z1)
+    U2 = _mul(spec, x2, Z1Z1)
+    S2 = _mul(spec, y2, _mul(spec, z1, Z1Z1))
+    H = _sub(spec, U2, x1)
+    r = _dbl(spec, _sub(spec, S2, y1))
+    HH = _sq(spec, H)
+    I = _dbl(spec, _dbl(spec, HH))
+    J = _mul(spec, H, I)
+    V = _mul(spec, x1, I)
+    X3 = _sub(spec, _sub(spec, _sq(spec, r), J), _dbl(spec, V))
+    Y3 = _sub(spec, _mul(spec, r, _sub(spec, V, X3)),
+               _dbl(spec, _mul(spec, y1, J)))
+    t = _add(spec, z1, H)
+    Z3 = _sub(spec, _sub(spec, _sq(spec, t), Z1Z1), HH)
+
+    Xd, Yd, Zd = double_plain(spec, x1, y1, z1)
+    same = _is_zero(H) & _is_zero(r)
+    p_inf = _is_zero(z1)
+    one = _one(spec, X3)
+    zero = torch.zeros_like(one)
+    from_q = (_sel(inf2, one, x2), _sel(inf2, one, y2), _sel(inf2, zero, one))
+    out = []
+    for c3, cd, c1, cq in zip((X3, Y3, Z3), (Xd, Yd, Zd), (x1, y1, z1), from_q):
+        c3 = _sel(same, cd, c3)
+        c3 = _sel(inf2, c1, c3)
+        out.append(_sel(p_inf, cq, c3))
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+
+def _batch(coords, masks=()) -> tuple:
+    """The broadcast batch shape of limb-major coordinates and batch masks
+    (the common case, one shape, without ``torch.broadcast_shapes``, which
+    costs ~0.1 ms of host time a launch)."""
+    shapes = {tuple(c.shape[1:]) for c in coords} | {tuple(m.shape) for m in masks}
+    if len(shapes) == 1:
+        return shapes.pop()
+    return tuple(torch.broadcast_shapes(*shapes))
+
+
+def _expand(x: torch.Tensor, batch: tuple) -> torch.Tensor:
+    """A [L, *b] coordinate as a [L, *batch] view (batch axes right-aligned)."""
+    if x.shape[1:] == batch:
+        return x
+    missing = len(batch) - (x.ndim - 1)
+    if missing > 0:
+        x = x.reshape(x.shape[:1] + (1,) * missing + x.shape[1:])
+    return x.expand(x.shape[:1] + batch)
+
+
+def _lane_stride(x: torch.Tensor):
+    """The one stride that walks the batch axes of ``x`` in order, or None
+    when they do not collapse into one (0 for a broadcast element)."""
+    dims = [(d, s) for d, s in zip(x.shape[1:], x.stride()[1:]) if d != 1]
+    if not dims:
+        return 0
+    expect = dims[-1][1]
+    for d, s in reversed(dims):
+        if s != expect:
+            return None
+        expect = s * d
+    return dims[-1][1]
+
+
+def _operand(x: torch.Tensor, batch: tuple):
+    """(tensor, limb stride, lane stride) of a coordinate broadcast to
+    ``batch``: a view where the strides allow it, else a contiguous copy."""
+    xe = _expand(x, batch)
+    bs = _lane_stride(xe)
+    if bs is None:
+        xe = xe.contiguous()
+        return xe, math.prod(batch), 1
+    return xe, xe.stride(0), bs
+
+
+def _check_out(spec: FieldSpec, out, batch: tuple, device) -> tuple:
+    """Output coordinates: new [L, *batch] arrays, or the caller's."""
+    shape = (spec.n_limbs,) + batch
+    if out is None:
+        return tuple(torch.empty(shape, dtype=torch.int32, device=device)
+                     for _ in range(3))
+    for t in out:
+        if tuple(t.shape) != shape or t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != device:
+            raise ValueError(f"out must be three contiguous int32 {shape} tensors "
+                             f"on {device}")
+    return tuple(out)
+
+
+def store(res, out):
+    """``res`` as the caller's ``out`` arrays, when given."""
+    if out is None:
+        return tuple(res)
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return tuple(out)
+
+
+def _launch(name: str, spec: FieldSpec, device, *args, one: bool = False) -> None:
+    from ..kernels import build
+
+    lib = build.library("sw_kernels", spec.n_words)
+    tail = (mk._p_words_arg(spec), spec.inv32)
+    if one:
+        tail += (mk._one_words_arg(spec),)
+    with torch.cuda.device(device):
+        code = getattr(lib, f"{name}_launch")(
+            *args, *tail, torch.cuda.current_stream().cuda_stream)
+    launches[name] += 1
+    mk._raise_on_error(code, name)
+
+
+def _flat_args(operands) -> list:
+    args = []
+    for t, ls, bs in operands:
+        args += [t.data_ptr(), ls, bs]
+    return args
+
+
+def double(spec: FieldSpec, P, out=None):
+    """Jacobian doubling (a = 0) of P = (x, y, z), int32 [L, *batch] each.
+    ``out``: three contiguous [L, *batch] arrays to write (they may be P's
+    own); new arrays when None."""
+    device = mk._check_elems(spec, *P)
+    batch = _batch(P)
+    if device.type == "cpu":
+        return store(double_plain(spec, *(_expand(c, batch) for c in P)), out)
+    outs = _check_out(spec, out, batch, device)
+    n = math.prod(batch)
+    if n:
+        ops = [_operand(c, batch) for c in P]
+        _launch("jac_double", spec, device, *_flat_args(ops),
+                *(o.data_ptr() for o in outs), n)
+    return outs
+
+
+def add(spec: FieldSpec, P, Q, out=None):
+    """Full Jacobian addition P + Q (a = 0), with the reference's exceptional
+    cases; coordinates int32 [L, ...], batch shapes broadcast.  ``out`` as
+    for ``double``."""
+    device = mk._check_elems(spec, *P, *Q)
+    batch = _batch((*P, *Q))
+    if device.type == "cpu":
+        return store(add_plain(spec, *(_expand(c, batch) for c in (*P, *Q))), out)
+    outs = _check_out(spec, out, batch, device)
+    n = math.prod(batch)
+    if n:
+        ops = [_operand(c, batch) for c in (*P, *Q)]
+        _launch("jac_add", spec, device, *_flat_args(ops),
+                *(o.data_ptr() for o in outs), n)
+    return outs
+
+
+def madd(spec: FieldSpec, P, aff, out=None):
+    """Mixed addition P + Q of a Jacobian P = (x, y, z) and an affine
+    Q = (x2, y2, inf) with ``inf`` a bool batch mask, with the reference's
+    exceptional cases; batch shapes broadcast.  ``out`` as for ``double``:
+    the MSM's bucket rounds pass P's own arrays and accumulate in place."""
+    x2, y2, inf = aff
+    device = mk._check_elems(spec, *P, x2, y2)
+    if inf.dtype != torch.bool or inf.device != device:
+        raise ValueError(f"inf must be a bool mask on {device}")
+    batch = _batch((*P, x2, y2), (inf,))
+    if device.type == "cpu":
+        coords = [_expand(c, batch) for c in (*P, x2, y2)]
+        return store(madd_plain(spec, *coords, inf.expand(batch)), out)
+    outs = _check_out(spec, out, batch, device)
+    n = math.prod(batch)
+    if n:
+        ops = [_operand(c, batch) for c in (*P, x2, y2)]
+        inf_b = inf.expand(batch)
+        inf_bs = _lane_stride(inf_b[None])
+        if inf_bs is None:
+            inf_b, inf_bs = inf_b.contiguous(), 1
+        _launch("jac_madd", spec, device, *_flat_args(ops), inf_b.data_ptr(), inf_bs,
+                *(o.data_ptr() for o in outs), n, one=True)
+    return outs

@@ -15,8 +15,14 @@ coset, short inputs), (5) runs the division path — ``entry.poly_quotient``
 at 2^24 must give back the factor a product was made from, through the
 blocked batched inversion — and checks the inversion on its own, (6) runs
 the short paths over the same kernels (Lagrange coefficients, long
-division, square roots).  Every comparison is bit-exact (tolerance 0:
-outputs are canonical integers).  One JSON object per line; the last line
+division, square roots), (7) holds the group-law kernels (Jacobian double,
+add, mixed add) against their plain versions on planted exceptional lanes
+and on real G1 points, (8) runs the G1 MSM — ``entry.g1_msm`` at 2^16,
+2^18 and 2^20 and ``msm.msm_chunks`` at 2^24 — against host oracles, step
+by step and under ``torch.profiler`` at 2^20, and (9) the group law's other
+paths (scalar multiplication, cofactor clearing, subgroup checks, the small
+MSM).  Every comparison is bit-exact (tolerance 0: outputs are canonical
+integers).  One JSON object per line; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import json
 import operator
+import random
 import subprocess
 import sys
 import time
@@ -40,9 +47,22 @@ PEAK_INT32_MAD_PER_S = 16.75e12
 
 LOG_MAIN = 24  # main path: 2^24-point domain, two 2^23-coefficient inputs
 SEED = 20240523
+# G1 MSM: entry.g1_msm at these sizes, msm_chunks with 2^MSM_CHUNK-point
+# chunks at 2^MSM_CHUNKED, distinct bases at 2^MSM_DISTINCT
+MSM_LOGS = (16, 18, 20)
+MSM_CHUNK = 20
+MSM_CHUNKED = 24
+MSM_DISTINCT = 16
+
+
+_T0 = time.time()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's seconds so far
+    (``t_s``), so each phase's time is the difference from the line before."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.time() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -61,6 +81,24 @@ def time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds of the device work of ``fn`` over ``reps`` calls:
+    the calls are queued behind a spin kernel of ~50 ms, so the events time
+    the launches back to back on the device and not the host's Python
+    between them (which ``time_ms`` includes when a launch is shorter)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -638,7 +676,8 @@ def run_inverse_path(device, rng, gpu, log_n, level_times):
     # pointwise multiply; the 1/n scaling; log_n butterfly stages a
     # transform; and the inversion's own level plan
     plan = mk.level_plan(n)
-    want_counts = {"mont_mul": 2 * (log_n - 1) + 3 * (log_n + 2) + 2,
+    want_counts = {**dict.fromkeys(counts, 0),
+                   "mont_mul": 2 * (log_n - 1) + 3 * (log_n + 2) + 2,
                    "butterfly": 3 * log_n, "inv_prefix": len(plan),
                    "inv_fermat": 1, "inv_backward": len(plan)}
     if counts != want_counts:
@@ -762,6 +801,470 @@ def run_small_inverse_paths(device, rng, gpu):
     return {"phase": "small_inverse_path", "passed": done, "gpu": gpu}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the group-law kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def sw_operands(spec, n: int, rng: np.random.Generator, device, planted: bool):
+    """Random coordinates for K6-K8 on n lanes, as (P, Q, inf2): P, Q
+    Jacobian triples [L, n], inf2 a bool [n] mask (1 in 8 set).  The group
+    laws are polynomial identities, so the coordinates need no curve.  With
+    ``planted``: P = inf on lane 0, Q = inf (z2 = 0 and inf2) on lane 1,
+    P = Q on lane 2 and on a whole warp, lanes 64-95 (z1 = one and
+    (x2, y2) = (x1, y1) for K8; Q = P for K7), P = -Q on lane 3, where H = 0
+    and r != 0 so Z3 = 0.  Lanes past n are not planted."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.ops import mont
+
+    coords = [convert.from_reference(random_limbs(spec, n, rng), device) for _ in range(6)]
+    inf2 = torch.from_numpy(rng.integers(0, 8, size=n) == 0).to(device)
+    x1, y1, z1, x2, y2, z2 = coords
+    if planted:
+        one = mont.bconst(spec.one_mont_limbs, (1,), device)
+        lanes = torch.arange(n, device=device)
+        same = (lanes == 2) | ((lanes >= 64) & (lanes < 96))
+        opp = lanes == 3
+        z1 = torch.where(same | opp, one, z1)
+        z1 = torch.where(lanes == 0, 0, z1)
+        z2 = torch.where(lanes == 1, 0, z2)
+        inf2 = torch.where(lanes == 1, True, inf2 & ~(same | opp))
+        x2 = torch.where(same | opp, x1, x2)
+        y2 = torch.where(same, y1, torch.where(opp, mont.neg(spec, y1), y2))
+        z2 = torch.where(same | opp, z1, z2)
+    return (x1, y1, z1), (x2, y2, z2), inf2
+
+
+def sw_mismatches(got, want) -> tuple[int, int]:
+    bad = [mismatches(g, w) for g, w in zip(got, want)]
+    return sum(b for b, _ in bad), max(e for _, e in bad)
+
+
+def check_sw_kernels(spec, rng, device):
+    """K6, K7 and K8 for one field against their plain versions on ragged n
+    with planted lanes, and the operand forms the MSM gives them: K8
+    in place with point-major rows for Q, K7 with a broadcast Q."""
+    from algebra_tpu_torch.ops import sw_kernels as swk
+
+    cases = []
+    for n in (1, 127, 4097, 65539):
+        P, Q, inf2 = sw_operands(spec, n, rng, device, planted=n > 96)
+        aff = (Q[0], Q[1], inf2)
+        bad6 = sw_mismatches(swk.double(spec, P), swk.double_plain(spec, *P))
+        bad7 = sw_mismatches(swk.add(spec, P, Q), swk.add_plain(spec, *P, *Q))
+        bad8 = sw_mismatches(swk.madd(spec, P, aff), swk.madd_plain(spec, *P, *aff))
+        cases.append({"n": n, "planted": n > 96, "double": bad6[0], "add": bad7[0],
+                      "madd": bad8[0], "max_abs_err": max(bad6[1], bad7[1], bad8[1])})
+    # K8 in place, Q as strided views of point-major rows [n, 2L]
+    L = spec.n_limbs
+    P, Q, inf2 = sw_operands(spec, 4097, rng, device, planted=True)
+    rows = torch.cat([Q[0].T, Q[1].T], dim=1).contiguous()
+    aff = (rows[:, :L].T, rows[:, L:].T, inf2)
+    want = swk.madd_plain(spec, *P, Q[0], Q[1], inf2)
+    acc = tuple(c.clone() for c in P)
+    swk.madd(spec, acc, aff, out=acc)
+    bad_rows = sw_mismatches(acc, want)
+    # K7 with one Q for every lane (lane stride 0)
+    Q1 = tuple(c[:, 5:6].contiguous() for c in Q)
+    bad_bc = sw_mismatches(swk.add(spec, P, Q1), swk.add_plain(spec, *P, *Q1))
+    torch.cuda.synchronize()
+    return {"field": spec.name, "words": spec.n_words, "ragged": cases,
+            "madd_in_place_point_major_rows": bad_rows[0],
+            "add_broadcast_q": bad_bc[0]}
+
+
+def sw_case_failures(case: dict) -> list:
+    bad = [c for c in case["ragged"] if c["double"] or c["add"] or c["madd"]]
+    if case["madd_in_place_point_major_rows"] or case["add_broadcast_q"]:
+        bad.append(case)
+    return bad
+
+
+def check_sw_on_curve(device, rng_host):
+    """K6-K8 on 64 lanes of real G1 points: after to_affine the results are
+    on the curve and equal the host group law."""
+    from algebra_tpu_torch.curves.instances import bls12_381
+
+    curve = bls12_381.g1(device)
+    ps, qs = curve.random_host(rng_host, 64), curve.random_host(rng_host, 64)
+    ps[7], qs[9] = None, None  # P = inf, Q = inf
+    q11, q12 = curve.host_double(qs[11]), curve.host_double(qs[12])
+    ps[11] = q11  # P = Q (Q below is 2 qs, Jacobian with z != 1)
+    ps[12] = (q12[0], curve.base.spec.modulus - q12[1])  # P = -Q
+    Pa, Qa = curve.from_host(ps), curve.from_host(qs)
+    P, Q = curve.from_affine(Pa), curve.double(curve.from_affine(Qa))
+    want_dbl = [curve.host_double(p) for p in ps]
+    want_add = [curve.host_add(p, curve.host_double(q)) for p, q in zip(ps, qs)]
+    want_madd = [curve.host_add(curve.host_double(q), p) for p, q in zip(ps, qs)]
+    bad = 0
+    for got, want in ((curve.double(P), want_dbl), (curve.add(P, Q), want_add),
+                      (curve.add_mixed(Q, Pa), want_madd)):
+        aff = curve.to_affine(got)
+        if not bool(curve.is_on_curve(aff).all()):
+            raise AssertionError("a group-law kernel left the curve")
+        bad += sum(g != w for g, w in zip(curve.to_host(got), want))
+    return {"lanes": 64, "host_oracle_mismatches": bad}
+
+
+def sass_counts(words: int) -> dict:
+    """Instructions in the compiled group-law kernels (cuobjdump -sass):
+    for each kernel, all instructions and the IMAD-class ones (the 32-bit
+    multiply-adds, wide and high forms included), also by form, since the
+    compiler uses IMAD.MOV as a move.  Static counts: every branch of the
+    kernel once, the loops unrolled as compiled; at 24 words the products
+    are out-of-line functions, which are not counted."""
+    import os
+    import re
+
+    from algebra_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.library_path("sw_kernels", words)],
+                          check=True, capture_output=True, text=True, timeout=300).stdout
+    insn = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = next((k for k in ("jac_double", "jac_add", "jac_madd") if k in line), None)
+            if name:
+                counts[name] = {"instructions": 0, "imad": 0}
+            continue
+        m = insn.search(line) if name else None
+        if m:
+            op = m.group(1)
+            counts[name]["instructions"] += 1
+            if op.startswith("IMAD"):
+                counts[name]["imad"] += 1
+                forms = counts[name].setdefault("imad_by_form", {})
+                forms[op] = forms.get(op, 0) + 1
+    return counts
+
+
+def sw_mads(spec, P, Q=None, inf2=None) -> int:
+    """32-bit multiply-adds that these operands make the group-law kernel
+    do, lane by lane on its branches: nothing for an infinity lane; the
+    products up to H and r, then the doubling for a P = Q lane or the rest
+    of the sum (K7 when Q is Jacobian, K8 when ``inf2`` is given; K6
+    when Q is None)."""
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    sq, mul = mads_per_square(spec), mads_per_product(spec)
+    dbl = 5 * sq + 2 * mul
+    if Q is None:
+        return dbl * P[0][0].numel()
+    zero = lambda t: (t == 0).all(dim=0)  # noqa: E731
+    P, Q = [c.contiguous() for c in P], [c.contiguous() for c in Q]
+    p_inf = zero(P[2])
+    if inf2 is None:  # K7
+        q_inf = zero(Q[2])
+        prefix, rest = 2 * sq + 6 * mul, 3 * sq + 5 * mul
+        z1z1, z2z2 = mk.mul(spec, P[2], P[2]), mk.mul(spec, Q[2], Q[2])
+        h = mk.sub_plain(spec, mk.mul(spec, Q[0], z1z1), mk.mul(spec, P[0], z2z2))
+        s = mk.sub_plain(spec, mk.mul(spec, Q[1], mk.mul(spec, P[2], z1z1)),
+                         mk.mul(spec, P[1], mk.mul(spec, Q[2], z2z2)))
+    else:  # K8
+        q_inf = inf2
+        prefix, rest = sq + 3 * mul, 3 * sq + 4 * mul
+        z1z1 = mk.mul(spec, P[2], P[2])
+        h = mk.sub_plain(spec, mk.mul(spec, Q[0], z1z1), P[0])
+        s = mk.sub_plain(spec, mk.mul(spec, Q[1], mk.mul(spec, P[2], z1z1)), P[1])
+    live = ~(p_inf | q_inf)
+    same = live & zero(h) & zero(s)
+    n_live, n_same = int(live.sum().item()), int(same.sum().item())
+    return n_live * prefix + n_same * dbl + (n_live - n_same) * rest
+
+
+def check_sw_main_shapes(device, rng, log_n: int, log_wide: int = 20):
+    """K8, K7 and K6 at the shapes the 2^log_n MSM launches them most often
+    (K8: one lockstep round over every (window, bucket), its affine operand
+    point-major gathered rows; K7: the inner step of the weighted
+    reduction; K6: the Horner fold's batch (), and [L, 2^20] where the
+    device sets the time), on random coordinates with every lane valid.
+    Against their plain versions, with times and data-counted bounds."""
+    from algebra_tpu_torch.curves.instances import bls12_381
+    from algebra_tpu_torch.ops import msm, sw_kernels as swk
+
+    spec = bls12_381.fq_spec
+    L = spec.n_limbs
+    n = 1 << log_n
+    c, W = msm.plan_windows(255, msm.default_window_size(n), n)
+    B = 1 << (c - 1)
+    G = min(B, 1 << (((B - 1).bit_length() + 1) // 2))
+    out = {}
+
+    # K8 at [L, W B], Q from rows [W B, 2L] as the round gathers them
+    P, Q, _ = sw_operands(spec, W * B, rng, device, planted=False)
+    inf2 = torch.zeros(W * B, dtype=torch.bool, device=device)
+    rows = torch.cat([Q[0].T, Q[1].T], dim=1).contiguous()
+    aff = (rows[:, :L].T, rows[:, L:].T, inf2)
+    want, plain_ms = wall_ms(lambda: swk.madd_plain(spec, *P, *aff))
+    bad = sw_mismatches(swk.madd(spec, P, aff), want)
+    del want
+    out["jac_madd"] = with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: swk.madd(spec, P, aff), 10), "shape": [L, W * B]},
+        (W * B) * (8 * L * 4 + 1), sw_mads(spec, P, aff, inf2))
+    del P, Q, rows, aff
+
+    # K7 at [L, W B / G], Q a strided slice as the reduction reads it
+    m = W * B // G
+    P, _, _ = sw_operands(spec, m, rng, device, planted=False)
+    Qw = tuple(t.reshape(L, m, 2)[..., 1] for t in sw_operands(spec, 2 * m, rng, device,
+                                                                planted=False)[0])
+    want, plain_ms = wall_ms(lambda: swk.add_plain(spec, *P, *Qw))
+    bad = sw_mismatches(swk.add(spec, P, Qw), want)
+    out["jac_add"] = with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: swk.add(spec, P, Qw), 20),
+         "host_ms_per_call": time_ms(lambda: swk.add(spec, P, Qw), 20), "shape": [L, m]},
+        m * 9 * L * 4, sw_mads(spec, P, Qw))
+
+    # K6 at batch () and at [L, 2^20]
+    P1 = tuple(t[:, 0] for t in sw_operands(spec, 1, rng, device, planted=False)[0])
+    want, plain1 = wall_ms(lambda: swk.double_plain(spec, *P1))
+    bad1 = sw_mismatches(swk.double(spec, P1), want)
+    Pn, _, _ = sw_operands(spec, 1 << log_wide, rng, device, planted=False)
+    want, plain_n = wall_ms(lambda: swk.double_plain(spec, *Pn))
+    badn = sw_mismatches(swk.double(spec, Pn), want)
+    del want
+    wide = with_bound({"ms": device_ms(lambda: swk.double(spec, Pn), 10),
+                       "plain_ms": plain_n, "shape": [L, 1 << log_wide]},
+                      (1 << log_wide) * 6 * L * 4, sw_mads(spec, Pn))
+    out["jac_double"] = with_bound(
+        {"mismatches": bad1[0] + badn[0], "max_abs_err": max(bad1[1], badn[1]),
+         "plain_ms": plain1, "ms": device_ms(lambda: swk.double(spec, P1), 50),
+         "host_ms_per_call": time_ms(lambda: swk.double(spec, P1), 50),
+         "shape": [L], f"at_2^{log_wide}": wide},
+        6 * L * 4, sw_mads(spec, P1))
+    torch.cuda.synchronize()
+    return out, {"c": c, "windows": W, "buckets": B, "block": G}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the G1 MSM, checked against host oracles
+# ---------------------------------------------------------------------------
+
+
+def g1_bases_256(curve, rng_host):
+    """256 random subgroup points made on the host: (host list, affine
+    tensors [256])."""
+    pts = curve.random_host(rng_host, 256)
+    return pts, curve.from_host(pts)
+
+
+def random_scalars(n: int, rng: np.random.Generator) -> np.ndarray:
+    """uint32 [16, n] canonical limbs of full-width scalars below r: every
+    limb uniform but the top one, uniform below r's top limb."""
+    from algebra_tpu_torch.curves.instances import bls12_381
+
+    out = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
+    out[15] = rng.integers(0, bls12_381.R >> 240, size=n, dtype=np.uint32)
+    return out
+
+
+def tiled_oracle(curve, pts: list, scalars: np.ndarray):
+    """sum_i s_i P_(i mod 256) on the host: the scalars summed per base
+    (numpy limb sums, then Python ints mod r), 256 host multiplications."""
+    n = scalars.shape[1]
+    sums = scalars.reshape(16, n // 256, 256).sum(axis=1, dtype=np.uint64)
+    r = curve.scalar_modulus
+    acc = None
+    for j, pt in enumerate(pts):
+        k = sum(int(sums[i, j]) << (16 * i) for i in range(16)) % r
+        acc = curve.host_add(acc, curve.host_mul(pt, k))
+    return acc
+
+
+def run_msm_path(device, rng, rng_host, gpu):
+    """``entry.g1_msm`` at 2^16, 2^18 and 2^20 and ``msm.msm_chunks`` at
+    2^24 on 256 tiled random bases, each against the host oracle; and
+    2^16 distinct bases k_i G against (sum s_i k_i) G."""
+    from algebra_tpu_torch import convert, entry
+    from algebra_tpu_torch.curves.instances import bls12_381
+    from algebra_tpu_torch.ops import mont_kernels as mk, msm
+
+    curve = bls12_381.g1(device)
+    pts, aff256 = g1_bases_256(curve, rng_host)
+    host_scalars = random_scalars(1 << MSM_CHUNKED, rng)
+    sizes, main_counts = [], None
+    for log_n in MSM_LOGS + (MSM_CHUNKED,):
+        n = 1 << log_n
+        bases = tuple(a.repeat(1, n // 256) if a.ndim == 2 else a.repeat(n // 256)
+                      for a in aff256)
+        sc_np = host_scalars[:, :n]
+        sc = convert.from_reference(sc_np, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mk.reset_launches()
+        if log_n in MSM_LOGS:
+            res, ms = wall_ms(lambda: entry.g1_msm(bases, sc, device=device))
+            route = "entry.g1_msm"
+        else:
+            res, ms = wall_ms(lambda: msm.msm_chunks(curve, bases, sc,
+                                                     chunk=1 << MSM_CHUNK))
+            route = f"msm.msm_chunks(chunk=2^{MSM_CHUNK})"
+        plan = dict(msm.stats)
+        aff, affine_ms = wall_ms(lambda: curve.to_affine(res))
+        counts = dict(mk.launches)  # the MSM and its result's normalisation
+        peak = torch.cuda.max_memory_allocated()
+        got = curve.to_host(res)
+        want = tiled_oracle(curve, pts, sc_np)
+        if got != want:
+            raise AssertionError(f"G1 MSM at 2^{log_n} differs from the host oracle")
+        if log_n == MSM_LOGS[-1]:
+            main_counts = counts
+        sizes.append({"log_n": log_n, "route": route, "ms": ms, "to_affine_ms": affine_ms,
+                      "plan": plan, "launches": counts, "peak_memory_bytes": peak,
+                      "host_oracle": "equal"})
+        del bases, res, sc, aff
+    # the 2^20 MSM again, phase by phase
+    phases = msm_phase_times(curve, aff256, host_scalars[:, : 1 << MSM_LOGS[-1]], device)
+    distinct = run_distinct_bases(curve, rng, rng_host, device)
+    idle = [k for k in ("mont_mul", "jac_double", "jac_add", "jac_madd")
+            if main_counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"the main MSM launched no {idle}: {main_counts}")
+    torch.cuda.synchronize()
+    return main_counts, {"phase": "msm_path", "curve": "bls12_381.G1",
+                         "sizes": sizes, f"phases_2^{MSM_LOGS[-1]}": phases,
+                         f"distinct_bases_2^{MSM_DISTINCT}": distinct, "gpu": gpu}
+
+
+def msm_phase_times(curve, aff256, sc_np, device) -> dict:
+    """The 2^20 MSM's steps one by one, each synchronised (host clock):
+    recode (digits, sort, runs), the signed row table, the bucket rounds
+    (K8 and the plain-torch gathers around it), the weighted reduction
+    (K7, K6), the Horner fold (K6, K7), to_affine (K1); then the whole MSM
+    once more under torch.profiler: device time by kernel and the share of
+    the call's wall time the device was busy."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.ops import msm
+
+    n = sc_np.shape[1]
+    x, y, inf = (a.repeat(1, n // 256) if a.ndim == 2 else a.repeat(n // 256)
+                 for a in aff256)
+    sc = convert.from_reference(sc_np, device)
+    c, W = msm.plan_windows(255, msm.default_window_size(n), n)
+    out = {}
+    (order_s, start, counts), out["recode_ms"] = wall_ms(lambda: msm.recode(sc, inf, c, W))
+    table, out["table_ms"] = wall_ms(lambda: msm.signed_table(curve, x, y))
+    buckets, out["rounds_ms"] = wall_ms(
+        lambda: msm.bucket_sums(curve, table, order_s, start, counts))
+    sums, out["reduction_ms"] = wall_ms(lambda: msm._weighted_reduce(curve, buckets))
+    total, out["fold_ms"] = wall_ms(lambda: msm._horner_fold(curve, sums, c))
+    _, out["to_affine_ms"] = wall_ms(lambda: curve.to_affine(total))
+    del order_s, start, counts, table, buckets, sums
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall = wall_ms(lambda: curve.to_affine(msm.msm(curve, (x, y, inf), sc)))
+    by_kernel = {}  # device events only: a CPU op's row repeats its kernels' time
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    busy_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    out["profiled"] = {
+        "wall_ms": wall,
+        "device_ms": busy_ms if by_kernel else "not measured",
+        "device_busy_share": busy_ms / wall if by_kernel else "not measured",
+        "device_ms_by_kernel": {k[:90]: v for k, v in top},
+        "group_law_device_ms": {
+            name: sum(v for k, v in by_kernel.items() if f"{name}_kernel" in k)
+            for name in ("jac_madd", "jac_add", "jac_double", "mont_mul")},
+    }
+    return out
+
+
+def run_distinct_bases(curve, rng, rng_host, device) -> dict:
+    """2^MSM_DISTINCT distinct bases P_i = k_i G, k_i = k0 + i d, made by
+    host additions; the MSM against (sum s_i k_i mod r) G."""
+    from algebra_tpu_torch import entry
+
+    n = 1 << MSM_DISTINCT
+    r = curve.scalar_modulus
+    k0, d = rng_host.randrange(1, r), rng_host.randrange(1, r)
+    g = curve.generator_host
+    step = curve.host_mul(g, d)
+    pts = [curve.host_mul(g, k0)]
+    for _ in range(n - 1):
+        pts.append(curve.host_add(pts[-1], step))
+    bases = curve.from_host(pts)
+    sc_np = random_scalars(n, rng)
+    res, ms = wall_ms(lambda: entry.g1_msm(bases, sc_np, device=device))
+    s_ints = limbs_to_ints(sc_np)
+    k = sum(s * ((k0 + i * d) % r) for i, s in enumerate(s_ints)) % r
+    if curve.to_host(res) != curve.host_mul(g, k):
+        raise AssertionError("G1 MSM on distinct bases differs from (sum s_i k_i) G")
+    return {"n": n, "ms": ms, "host_oracle": "equal"}
+
+
+def run_small_group_paths(device, rng, rng_host, gpu):
+    """The group law's other paths on 64 lanes against the host: scalar
+    multiplication, mul_int, to/from affine, is_on_curve, equal; cofactor
+    clearing and the subgroup check on curve points outside the subgroup;
+    the MSM's n < 64 path."""
+    from algebra_tpu_torch import convert, entry
+    from algebra_tpu_torch.curves.instances import bls12_381
+
+    curve = bls12_381.g1(device)
+    F = curve.base
+    done = []
+    pts = curve.random_host(rng_host, 64)
+    pts[3] = None
+    aff = curve.from_host(pts)
+    P = curve.from_affine(aff)
+    sc_np = random_scalars(64, rng)
+    ks = limbs_to_ints(sc_np)
+    got = curve.to_host(curve.scalar_mul(P, convert.from_reference(sc_np, device)))
+    if got != [curve.host_mul(p, k) if p else None for p, k in zip(pts, ks)]:
+        raise AssertionError("scalar_mul differs from the host")
+    done.append("scalar_mul 64 lanes")
+    k = rng_host.randrange(1, 1 << 70)
+    if curve.to_host(curve.mul_int(P, k)) != [curve.host_mul_raw(p, k) for p in pts]:
+        raise AssertionError("mul_int differs from the host")
+    done.append("mul_int")
+    back, fin = curve.to_affine(P), ~aff[2]
+    if not (torch.equal(back[0][:, fin], aff[0][:, fin])
+            and torch.equal(back[1][:, fin], aff[1][:, fin]) and torch.equal(back[2], aff[2])):
+        raise AssertionError("to_affine(from_affine(P)) != P")
+    Q = curve.double(P)
+    if not bool(curve.is_on_curve(curve.to_affine(Q)).all()):
+        raise AssertionError("is_on_curve rejects 2P")
+    if not bool(curve.equal(curve.add(P, P), Q).all()) or bool(curve.equal(P, Q)[5]):
+        raise AssertionError("equal is wrong")
+    done.append("to_affine/from_affine, is_on_curve, equal")
+
+    # curve points outside the subgroup: random x until x^3 + 4 is a square
+    x = convert.from_reference(random_limbs(F.spec, 256, rng), device)
+    ok, y = F.sqrt(F.add(F.mul(F.square(x), x), F.constant(4)))
+    off = (x[:, ok][:, :32], y[:, ok][:, :32],
+           torch.zeros(32, dtype=torch.bool, device=device))
+    if not bool(curve.is_on_curve(off).all()):
+        raise AssertionError("sqrt gave points off the curve")
+    Poff = curve.from_affine(off)
+    inside = curve.is_in_correct_subgroup(Poff)
+    host_inside = [curve.host_is_in_correct_subgroup(p) for p in curve.to_host(Poff)[:4]]
+    cleared = curve.clear_cofactor(Poff)
+    if bool(inside.any()) or any(host_inside) \
+            or not bool(curve.is_in_correct_subgroup(cleared).all()):
+        raise AssertionError("subgroup check or cofactor clearing is wrong")
+    if not bool(curve.is_in_correct_subgroup(P).all()):
+        raise AssertionError("subgroup points fail the subgroup check")
+    done.append("clear_cofactor / is_in_correct_subgroup on 32 points outside G1")
+
+    n = 40
+    res = entry.g1_msm(curve.from_host(pts[:n]), sc_np[:, :n], device=device)
+    want = None
+    for p, kk in zip(pts[:n], ks[:n]):
+        want = curve.host_add(want, curve.host_mul(p, kk))
+    if curve.to_host(res) != want:
+        raise AssertionError("the n < 64 MSM differs from the host")
+    done.append("g1_msm n = 40 (scalar_mul path)")
+    torch.cuda.synchronize()
+    return {"phase": "small_group_paths", "passed": done, "gpu": gpu}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -777,11 +1280,14 @@ def main() -> int:
 
     build_s = build.build_all()
     emit({"phase": "device", "gpu": gpu, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "kernel_build_s": build_s,
-          "ptxas": {f"{src}_w{w}": [ln for ln in build.build_log(src, w).splitlines()
-                                    if "registers" in ln or "spill" in ln]
+          "cuda": torch.version.cuda, "kernel_build_s": max(build_s.values(), default=0.0),
+          "build_s_by_library": build_s,
+          "ptxas": {f"{src}_w{w}": [ln.strip() for ln in build.build_log(src, w).splitlines()
+                                    if "entry function" in ln or "registers" in ln
+                                    or "spill" in ln]
                     for src in build.KERNEL_SOURCES for w in build.WORD_COUNTS}})
 
+    rng_host = random.Random(SEED)
     fr = bls12_381.fr_spec
     # the three fields in use, and a modulus with no spare top bit, where the
     # final subtraction has to look at the carry word
@@ -806,24 +1312,52 @@ def main() -> int:
     if k2["mismatches"] or k3["mismatches"] or k4["mismatches"]:
         raise AssertionError(f"kernel disagrees at the main shape: {k2} {k3} {k4}")
 
+    t0 = time.time()
+    sw_cases = [check_sw_kernels(s, rng, device)
+                for s in (full_width, bls12_381.fq_spec, mnt4_753.fq_spec)]
+    on_curve = check_sw_on_curve(device, rng_host)
+    emit({"phase": "sw_kernel_cases", "cases": sw_cases, "g1_points": on_curve,
+          "sass": {f"w{w}": sass_counts(w) for w in build.WORD_COUNTS},
+          "seconds": time.time() - t0, "gpu": gpu})
+    failed = [c for case in sw_cases for c in sw_case_failures(case)]
+    if failed or on_curve["host_oracle_mismatches"]:
+        raise AssertionError(f"group-law kernel disagrees: {failed} {on_curve}")
+    sw_main, msm_shape = check_sw_main_shapes(device, rng, MSM_LOGS[-1])
+    bad = {k: v for k, v in sw_main.items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"group-law kernel disagrees at the main shape: {bad}")
+
     counts, main_line = run_main_path(device, rng, gpu)
     emit(main_line)
     emit(run_small_paths(device, rng, gpu))
     inv_counts, inverse_line = run_inverse_path(device, rng, gpu, LOG_MAIN, level_times)
     emit(inverse_line)
     emit(run_small_inverse_paths(device, rng, gpu))
+    t0 = time.time()
+    msm_counts, msm_line = run_msm_path(device, rng, rng_host, gpu)
+    emit({**msm_line, "kernel_shapes": msm_shape, "seconds": time.time() - t0})
+    t0 = time.time()
+    emit({**run_small_group_paths(device, rng, rng_host, gpu), "seconds": time.time() - t0})
 
     # launches: K1 and K5 as the product path counted them, K2-K4 as the
-    # division path did (which also ran K1 and K5: see its own line)
+    # division path did (which also ran K1 and K5: see its own line), K6-K8
+    # as the 2^20 G1 MSM did
     ntt_src = {"route": "cuda", "source": "algebra_tpu_torch/csrc/mont_kernels.cu",
                "library_ms": None, "gpu": gpu}
     inv_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/inverse_kernels.cu"}
+    sw_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/sw_kernels.cu"}
     rows = [
         ("mont_mul", "algebra_tpu/ops/mont_pallas.py:189", counts, k1, ntt_src),
         ("butterfly", "algebra_tpu/ops/mont_pallas.py:417", counts, k5, ntt_src),
         ("inv_prefix", "algebra_tpu/ops/mont_pallas.py:207", inv_counts, k2, inv_src),
         ("inv_fermat", "algebra_tpu/ops/mont_pallas.py:238", inv_counts, k3, inv_src),
         ("inv_backward", "algebra_tpu/ops/mont_pallas.py:221", inv_counts, k4, inv_src),
+        ("jac_double", "algebra_tpu/ops/sw_pallas.py:111", msm_counts,
+         sw_main["jac_double"], sw_src),
+        ("jac_add", "algebra_tpu/ops/sw_pallas.py:120", msm_counts, sw_main["jac_add"],
+         sw_src),
+        ("jac_madd", "algebra_tpu/ops/sw_pallas.py:56", msm_counts, sw_main["jac_madd"],
+         sw_src),
     ]
     emit({"kernels": [
         {"name": name, "replaces": replaces, "launches": path_counts[name],

@@ -19,6 +19,7 @@ for mod in pkgutil.walk_packages(algebra_tpu_torch.__path__, prefix="algebra_tpu
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "algebra_tpu", "triton"))
 print("MODULES", len(names), "BAD", bad)
+print("NAMES", " ".join(names))
 import torch
 from algebra_tpu_torch import config
 print("CUDA", torch.cuda.is_available(), "DEFAULT", config.default_device)
@@ -47,7 +48,10 @@ def test_package_imports_without_jax_or_cuda():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n_modules = int(out.stdout.split("MODULES")[1].split()[0])
-    assert n_modules >= 20, out.stdout
+    assert n_modules >= 24, out.stdout
+    names = set(out.stdout.split("NAMES")[1].split())
+    assert {"algebra_tpu_torch.curves.sw", "algebra_tpu_torch.ops.msm",
+            "algebra_tpu_torch.ops.sw_kernels", "algebra_tpu_torch.fields.host"} <= names
     assert "DEFAULT cuda" in out.stdout
 
 
@@ -66,10 +70,11 @@ def test_kernel_sources_are_in_the_package():
     from algebra_tpu_torch.kernels import build
 
     sources = {f"{src}.cu" for src in build.KERNEL_SOURCES}
-    assert sources == {"mont_kernels.cu", "inverse_kernels.cu"}
-    assert sources | {"mont.cuh", "launch.cuh"} <= set(os.listdir(csrc))
+    assert sources == {"mont_kernels.cu", "inverse_kernels.cu", "sw_kernels.cu"}
+    assert sources | {"mont.cuh", "launch.cuh", "sw.cuh"} <= set(os.listdir(csrc))
+    assert set(build._HEADERS) == {"mont.cuh", "launch.cuh", "sw.cuh"}
     # one library per source and word count, named after a hash of the sources
     paths = {build.library_path(src, w)
              for src in build.KERNEL_SOURCES for w in build.WORD_COUNTS}
-    assert len(paths) == 6 and all("_build" in p for p in paths)
+    assert len(paths) == 9 and all("_build" in p for p in paths)
     assert set(build._signatures()) == set(build.KERNEL_SOURCES)
