@@ -235,3 +235,27 @@ __device__ __forceinline__ void jac_madd(uint32_t (&X3)[W], uint32_t (&Y3)[W],
   mod_dbl<W>(t, t, fp);
   mod_sub<W>(Y3, Y3, t, fp);
 }
+
+// The case analysis of the affine chord/tangent addition of (x1, y1) and
+// (x2, y2), each possibly infinity (i1, i2), as the reference's _aff_cases
+// (ops/sw_pallas.py): d = x2 - x1; a tangent (dbl) where the x agree and
+// the y are equal and nonzero; opposite points (opp) where the x agree
+// otherwise; a degenerate lane (an infinity or opp), whose denominator is
+// one, so that the batched inversion stays defined.  Canonical values, so
+// y equality is word equality.
+template <int W>
+__device__ __forceinline__ void aff_cases(uint32_t (&d)[W], bool& dbl, bool& opp,
+                                          bool& degen, const uint32_t (&x1)[W],
+                                          const uint32_t (&y1)[W], bool i1,
+                                          const uint32_t (&x2)[W],
+                                          const uint32_t (&y2)[W], bool i2,
+                                          const FieldParams<W>& fp) {
+  mod_sub<W>(d, x2, x1, fp);
+  bool same_x = is_zero<W>(d);
+  uint32_t diff = 0;
+#pragma unroll
+  for (int k = 0; k < W; ++k) diff |= y1[k] ^ y2[k];
+  dbl = same_x && diff == 0 && !is_zero<W>(y1);
+  opp = same_x && !dbl;
+  degen = i1 || i2 || opp;
+}

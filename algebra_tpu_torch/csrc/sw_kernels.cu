@@ -29,6 +29,7 @@
 // touches that lane.
 
 #include "launch.cuh"
+#include "rows.cuh"
 #include "sw.cuh"
 
 struct Operand {
@@ -106,6 +107,105 @@ jac_madd_kernel(Operand x1, Operand y1, Operand z1, Operand x2, Operand y2,
   }
 }
 
+// ---------------------------------------------------------------------------
+// One halving level of the MSM's affine tree on packed rows (rows.cuh):
+// K11 affr_denom and K12 affr_post, around the batched inversion (K2-K4).
+// They replace _affr_denom_kernel and _affr_post_kernel
+// (algebra_tpu/ops/sw_pallas.py:373, :391).  V holds 2m rows, pair i in
+// rows 2i (P) and 2i + 1 (Q); `valid`, when given (the first level of a
+// stage), is a bool a row, and an invalid row counts as infinity.  One
+// thread a pair, its rows read as 16-byte pieces.
+//   * K11 writes the slope's denominator, limb-major [L, m] for the
+//     inversion: 2 y1 for a tangent, x2 - x1 for a chord, one for a
+//     degenerate lane.  No products: bound by bytes (two rows in, one
+//     element out).
+//   * K12 writes P + Q as a row: lambda = num * inv, x3 = lambda^2 - x1 - x2,
+//     y3 = lambda (x1 - x3) - y1, num = 3 x1^2 + a for a tangent, y2 - y1
+//     otherwise.  The reference computes this in every lane and then
+//     selects x3 = i1 ? x2 : (i2 ? x1 : x3) (y3 alike) and
+//     inf3 = (i1 and i2) or (not i1 and not i2 and opp).  Here an infinity
+//     lane copies and only the other lanes compute, which gives the same
+//     words; an opposite-points lane computes with inv = 1 as the
+//     reference does, so its (flagged) coordinates agree too.  Two
+//     products and a square a lane (a tangent one more square): at W = 12,
+//     834 multiply-adds against 2 x 196 + 96 + 208 bytes, so by the count
+//     bytes bound it, four to one; as for K8, the instructions around the
+//     multiply-adds and the registers a lane holds decide in practice.
+// ---------------------------------------------------------------------------
+
+template <int W>
+__device__ __forceinline__ void load_pair(uint32_t (&x1)[W], uint32_t (&y1)[W], bool& i1,
+                                          uint32_t (&x2)[W], uint32_t (&y2)[W], bool& i2,
+                                          const uint32_t* V, const uint8_t* valid,
+                                          size_t i) {
+  load_row<W>(x1, y1, i1, V, 2 * i);
+  load_row<W>(x2, y2, i2, V, 2 * i + 1);
+  if (valid != nullptr) {
+    i1 = i1 || valid[2 * i] == 0;
+    i2 = i2 || valid[2 * i + 1] == 0;
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+affr_denom_kernel(const uint32_t* __restrict__ V, const uint8_t* __restrict__ valid,
+                  uint32_t* __restrict__ den, size_t m, FieldParams<W> fp, Words<W> one) {
+  size_t step = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < m; i += step) {
+    uint32_t x1[W], y1[W], x2[W], y2[W], d[W];
+    bool i1, i2, dbl, opp, degen;
+    load_pair<W>(x1, y1, i1, x2, y2, i2, V, valid, i);
+    aff_cases<W>(d, dbl, opp, degen, x1, y1, i1, x2, y2, i2, fp);
+    if (degen) {
+      copy_words<W>(d, one.w);
+    } else if (dbl) {
+      mod_add<W>(d, y1, y1, fp);
+    }
+    store_limbs<W>(den, m, i, d);
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+affr_post_kernel(const uint32_t* __restrict__ V, const uint8_t* __restrict__ valid,
+                 const uint32_t* __restrict__ inv, uint32_t* __restrict__ out, size_t m,
+                 FieldParams<W> fp, Words<W> a, int has_a) {
+  size_t step = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < m; i += step) {
+    uint32_t x1[W], y1[W], x2[W], y2[W];
+    bool i1, i2;
+    load_pair<W>(x1, y1, i1, x2, y2, i2, V, valid, i);
+    if (i1) {
+      store_row<W>(out, i, x2, y2, i2);
+      continue;
+    }
+    if (i2) {
+      store_row<W>(out, i, x1, y1, false);
+      continue;
+    }
+    uint32_t d[W], num[W], lam[W], x3[W], y3[W];
+    bool dbl, opp, degen;
+    aff_cases<W>(d, dbl, opp, degen, x1, y1, i1, x2, y2, i2, fp);
+    if (dbl) {  // num = 3 x1^2 + a
+      fsq<W>(d, x1, fp);
+      mod_add<W>(num, d, d, fp);
+      mod_add<W>(num, num, d, fp);
+      if (has_a) mod_add<W>(num, num, a.w, fp);
+    } else {
+      mod_sub<W>(num, y2, y1, fp);
+    }
+    load_limbs<W>(d, inv, m, i);
+    fmul<W>(lam, num, d, fp);
+    fsq<W>(x3, lam, fp);
+    mod_sub<W>(x3, x3, x1, fp);
+    mod_sub<W>(x3, x3, x2, fp);
+    mod_sub<W>(d, x1, x3, fp);
+    fmul<W>(y3, lam, d, fp);
+    mod_sub<W>(y3, y3, y1, fp);
+    store_row<W>(out, i, x3, y3, opp);
+  }
+}
+
 static inline Operand op(const void* p, size_t ls, size_t bs) {
   return Operand{(const uint32_t*)p, ls, bs};
 }
@@ -149,6 +249,24 @@ int jac_madd_launch(const void* x1, size_t x1_ls, size_t x1_bs, const void* y1,
       op(x2, x2_ls, x2_bs), op(y2, y2_ls, y2_bs), (const uint8_t*)q_inf, inf_bs,
       (uint32_t*)xo, (uint32_t*)yo, (uint32_t*)zo, n, make_params(p_words, inv32),
       make_words(one_words));
+  return (int)cudaGetLastError();
+}
+
+int affr_denom_launch(const void* V, const void* valid, void* den, size_t m,
+                      const uint32_t* p_words, uint32_t inv32, const uint32_t* one_words,
+                      void* stream) {
+  affr_denom_kernel<kW><<<grid_for(m), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)V, (const uint8_t*)valid, (uint32_t*)den, m,
+      make_params(p_words, inv32), make_words(one_words));
+  return (int)cudaGetLastError();
+}
+
+int affr_post_launch(const void* V, const void* valid, const void* inv, void* out, size_t m,
+                     const uint32_t* p_words, uint32_t inv32, const uint32_t* a_words,
+                     int has_a, void* stream) {
+  affr_post_kernel<kW><<<grid_for(m), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)V, (const uint8_t*)valid, (const uint32_t*)inv, (uint32_t*)out, m,
+      make_params(p_words, inv32), make_words(a_words), has_a);
   return (int)cudaGetLastError();
 }
 

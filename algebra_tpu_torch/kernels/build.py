@@ -20,8 +20,9 @@ import time
 from .. import config
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-KERNEL_SOURCES = ("mont_kernels", "inverse_kernels", "sw_kernels")  # one library each
-_HEADERS = ("mont.cuh", "launch.cuh", "sw.cuh")
+# one library each, for each word count
+KERNEL_SOURCES = ("mont_kernels", "inverse_kernels", "sw_kernels", "rows_kernels")
+_HEADERS = ("mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh")
 WORD_COUNTS = (8, 12, 24)
 
 _libs: dict[tuple[str, int], ctypes.CDLL] = {}
@@ -137,6 +138,15 @@ def _signatures() -> dict[str, dict[str, list]]:
             "jac_add_launch": [vp, sz, sz] * 6 + [vp, vp, vp, sz, words_p, u32, vp],
             "jac_madd_launch": [vp, sz, sz] * 5 + [vp, sz, vp, vp, vp, sz, words_p, u32,
                                                    words_p, vp],
+            "affr_denom_launch": [vp, vp, vp, sz, words_p, u32, words_p, vp],
+            "affr_post_launch": [vp, vp, vp, vp, sz, words_p, u32, words_p, ci, vp],
+        },
+        "rows_kernels": {
+            "rows_words": [],
+            "pack_launch": [vp, vp, vp, vp, sz, vp],
+            "unpack_launch": [vp, vp, vp, vp, sz, vp],
+            "negate_y_launch": [vp, vp, vp, sz, words_p, u32, vp],
+            "expand_units_launch": [vp, vp, vp, sz, ci, sz, vp],
         },
     }
 

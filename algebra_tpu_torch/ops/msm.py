@@ -26,9 +26,23 @@ recoded order carries +n for a negative digit, so a round is one row
 gather that K8 reads through strides.  The result is the reference's point,
 bit for bit in Jacobian coordinates.
 
+With ``config.msm_affine_tree`` the bucket phase is the reference's
+**affine halving tree** instead (its TPU path), per group of windows
+(``_tree_plan``): the bases are packed into rows once (K13); stage A
+gathers the rows in sorted order and negates y by the digit's sign (K15);
+every stage pads the runs to multiples of 2^ks, expands them into slot
+units (K16) and halves them ks times with the affine chord/tangent law
+(``sw_kernels.affine_add_rows``: K11, the batched inversion K2-K4, K12),
+with extra one-level stages while they are cheaper than lockstep rounds
+(``_extra_stages``); the few slots left finish in capped lockstep rounds
+of K8 over unpacked rows (K14) and a compacted drain.  The tree needs a
+prime base field: over any other it would need ``SWCurve.affine_add``
+(kernels K9/K10), which is not ported, and ``msm`` raises.  The result is
+the same point as the lockstep path's, reached by another order of
+additions, so the two compare in affine.
+
 Scalars are canonical 16-bit limbs (int32 [Ls, n]); ``msm_mont`` takes
-Montgomery-form scalar-field elements.  The reference's affine halving
-tree (``config.msm_affine_tree``, kernels K9-K16) is not ported yet.
+Montgomery-form scalar-field elements.
 """
 
 from __future__ import annotations
@@ -38,12 +52,24 @@ import math
 import torch
 
 from .. import config
+from ..bigint import int_to_limbs
+from ..fields.prime import PrimeField
 from ..fields.spec import FieldSpec
-from . import mont
+from . import mont, rows, sw_kernels
 
 # What the last ``msm`` call chose and ran, for reporting (window size,
-# window count, buckets a window, rounds of each loop, compacted lanes).
+# window count, buckets a window, the bucket path; the lockstep path's
+# rounds of each loop and compacted lanes; the tree's levels, stages,
+# window group and, by group, its finishing rounds and drained lanes).
 stats: dict = {}
+
+# The reference's planner costs for the tree path, seconds a unit, measured
+# on a TPU v5e (its ``config.msm_cost_*``); only their ratios matter.
+# Refitting them to the H100 is later work; the MSM's result does not
+# depend on them.
+MSM_COST_RECODE = 36e-9  # a window-point: signed digits, sort, tables
+MSM_COST_SLOT = 80e-9  # a padded tree slot: expansion, levels, lockstep share
+MSM_COST_BUCKET = 5.0e-7  # a (window, bucket): reduction, metadata, sweeps
 
 
 def ln_without_floats(n: int) -> int:
@@ -97,12 +123,17 @@ def signed_digits(scalars: torch.Tensor, c: int, num_windows: int,
     return torch.stack(digits, dim=0).to(torch.int32)
 
 
-def plan_windows(scalar_bits: int, c0: int, n: int):
-    """(c, W) minimising the reference's lockstep cost model: kernel
-    launches at ~1 ms and lane-adds at ~22 ns, as it was fitted to XLA:CPU.
-    c is capped at 16 and the final unsigned window must fit the signed
-    bucket range (leftover <= c - 1).  Refitting the model to the H100 is
-    later work; the MSM's result does not depend on it."""
+def plan_windows(scalar_bits: int, c0: int, n: int, tree: bool | None = None):
+    """(c, W) minimising the reference's cost model of the bucket path:
+    for the lockstep path (``tree`` False) kernel launches at ~1 ms and
+    lane-adds at ~22 ns, as it was fitted to XLA:CPU; for the tree
+    W (n recode + m0 slot + B bucket) with the v5e unit costs above.
+    ``tree`` None follows ``config.msm_affine_tree``.  c is capped at 16 and
+    the final unsigned window must fit the signed bucket range
+    (leftover <= c - 1).  Refitting either model to the H100 is later work;
+    the MSM's result does not depend on it."""
+    if tree is None:
+        tree = config.msm_affine_tree
     best = None
     for c in range(max(4, c0 - 3), min(16, c0 + 2) + 1):
         W = -(-scalar_bits // c)
@@ -110,9 +141,13 @@ def plan_windows(scalar_bits: int, c0: int, n: int):
         if leftover > c - 1:
             continue  # the unsigned top value would overflow the bucket range
         B = 1 << (c - 1)
-        launches = 1.3 * n / B + n / (1 << leftover) + 2 * (c - 1)
-        lane_adds = 2 * n * W + 2 * (c - 1) * W * B + (n / (1 << leftover)) * B
-        score = launches * 1e-3 + lane_adds * 22e-9
+        if tree:
+            _, m0, _ = _tree_plan(n, B, 1)
+            score = W * (n * MSM_COST_RECODE + m0 * MSM_COST_SLOT + B * MSM_COST_BUCKET)
+        else:
+            launches = 1.3 * n / B + n / (1 << leftover) + 2 * (c - 1)
+            lane_adds = 2 * n * W + 2 * (c - 1) * W * B + (n / (1 << leftover)) * B
+            score = launches * 1e-3 + lane_adds * 22e-9
         if best is None or score < best[0]:
             best = (score, c, W)
     if best is None:  # pathological scalar_bits: c = 4
@@ -263,30 +298,276 @@ def msm(curve, bases_aff, scalars: torch.Tensor, c: int | None = None,
 
     curve: an ``SWCurve``; bases_aff: affine batch (x, y, inf) of n points;
     scalars: int32 [Ls, n] canonical 16-bit limbs (< 2^scalar_bits;
-    default min(16 Ls, bits of r)), on the curve's device.  Returns one
-    Jacobian point (batch shape ())."""
+    default min(16 Ls, bits of r)), on the curve's device.  The bucket
+    phase is the affine tree where ``config.msm_affine_tree`` is set, else
+    the lockstep rounds.  Returns one Jacobian point (batch shape ())."""
     x, y, inf = bases_aff
     n = scalars.shape[1]
     if n < 64:
         # tiny inputs: per-point scalar multiplication and a sequential sum
         P = curve.scalar_mul(curve.from_affine(bases_aff), scalars)
         return scan_sum(curve, P, axis=0)
-    if config.msm_affine_tree:
-        raise NotImplementedError("the MSM's affine halving tree (kernels K9-K16) "
-                                  "is not ported yet; set config.msm_affine_tree = False")
+    tree = config.msm_affine_tree
+    level_fn = _rows_level_fn(curve) if tree else None
+    if tree and level_fn is None:
+        raise NotImplementedError(
+            "the MSM's affine tree over a base field that is not prime needs "
+            "SWCurve.affine_add (kernels K9/K10), which is not ported yet; "
+            "set config.msm_affine_tree = False")
     if scalar_bits is None:
         scalar_bits = min(16 * scalars.shape[0], curve.scalar_modulus.bit_length())
     if c is None:
-        c, num_windows = plan_windows(scalar_bits, default_window_size(n), n)
+        c, num_windows = plan_windows(scalar_bits, default_window_size(n), n, tree=tree)
     else:
         num_windows = _num_windows(scalar_bits, c)
     stats.clear()
-    stats.update(n=n, c=c, windows=num_windows, buckets=1 << (c - 1))
-    order_s, start, counts = recode(scalars, inf, c, num_windows)
-    buckets = bucket_sums(curve, signed_table(curve, x, y), order_s, start, counts)
-    del order_s, start, counts
+    stats.update(n=n, c=c, windows=num_windows, buckets=1 << (c - 1),
+                 path="tree" if tree else "lockstep")
+    if tree:
+        buckets = tree_bucket_sums(curve, bases_aff, scalars, c, num_windows, level_fn)
+    else:
+        order_s, start, counts = recode(scalars, inf, c, num_windows)
+        buckets = bucket_sums(curve, signed_table(curve, x, y), order_s, start, counts)
+        del order_s, start, counts
     window_sums = _weighted_reduce(curve, buckets)  # [W]
     return _horner_fold(curve, window_sums, c)
+
+
+# --------------------------------------------------------------------------
+# the affine halving tree
+# --------------------------------------------------------------------------
+
+
+def _pad_bucket(n: int, block: int) -> int:
+    """The reference's ``mont_pallas.pad_bucket``: n rounded up to a multiple
+    of ``block``, then to the nearest 2^k or 3 * 2^(k-2).  The port pads no
+    kernel widths with it; ``_tree_plan`` keeps it so that its plan (k, m0,
+    group) is the reference's."""
+    n = max(n, block)
+    k = (n - 1).bit_length()
+    c2 = 3 << (k - 2) if k >= 2 else 0
+    if c2 >= n and c2 % block == 0:
+        return c2
+    return 1 << k if (1 << k) % block == 0 else -(-n // block) * block
+
+
+def _tree_plan(n: int, n_buckets: int, num_windows: int, budget_slots: int | None = None):
+    """(k, m0, group), as the reference plans the tree: k halving levels in
+    the first stage (while the mean occupancy exceeds 4, at most 4); m0 the
+    padded level-0 slots a window; group the windows a group, from the
+    reference's family of sizes, so that group * m0 stays within
+    ``budget_slots`` (the reference's 6 * 2^20 by default).  On the H100 a
+    slot is a row of ``rows.row_width`` words (208 B for BLS12-381 Fq) in
+    each of the stage's arrays; the budget is the TPU's and is not refit
+    here."""
+    occ = max(1, n // n_buckets)
+    k = 0
+    while occ > 4 and k < 4:
+        occ //= 2
+        k += 1
+    m0 = _pad_bucket(n + ((1 << k) - 1) * n_buckets, max(64 << k, 128))
+    if budget_slots is None:
+        budget_slots = 6 << 20
+    allowed = [16, 12, 8, 6, 4, 3, 2, 1]
+    if m0 % 3 == 0:
+        allowed = [16, 8, 4, 2, 1]
+    group = 1
+    for g in allowed:
+        if g <= num_windows and g * m0 <= budget_slots:
+            group = g
+            break
+    return k, m0, group
+
+
+# The reference's costs for the stage-versus-lockstep choice (v5e): a tree
+# slot ~40 ns, a lockstep round ~110 ns a (window, bucket) lane, ~2 ms fixed
+# each.  Not refit to the H100 here.
+_STAGE_SLOT_NS = 40e-9
+_ROUND_LANE_NS = 1.1e-7
+_STAGE_FIXED_S = 2e-3
+_ROUND_FIXED_S = 2e-3
+
+
+def _extra_stages(n: int, n_buckets: int, k1: int) -> list[int]:
+    """The one-level stages after the first k1-level stage, as the
+    reference schedules them: another stage while re-halving costs less
+    than the lockstep rounds it saves, scored against the ~94th-percentile
+    count that the capped lockstep finish runs to.  Static; an unlucky
+    digit distribution only leaves more finishing rounds."""
+    occ = n / max(n_buckets, 1)
+    cpct = int(occ + 1.6 * math.sqrt(occ) + 2)
+    cpct = -(-cpct // (1 << k1))
+    n_cur = (n + ((1 << k1) - 1) * n_buckets) // (1 << k1)
+    ks = []
+    while cpct > 2 and len(ks) < 4:
+        m_s = n_cur + n_buckets  # U = 2 padded slot count (a window)
+        stage_cost = m_s * _STAGE_SLOT_NS + _STAGE_FIXED_S
+        rounds_saved = cpct - (cpct + 1) // 2
+        saved = rounds_saved * (n_buckets * _ROUND_LANE_NS + _ROUND_FIXED_S)
+        if saved <= stage_cost:
+            break
+        ks.append(1)
+        cpct = (cpct + 1) // 2
+        n_cur = m_s // 2
+    return ks
+
+
+def _batched_inv_fn(base):
+    """The tree's batched inversion over its prime base field: the blocked
+    one (K2-K4), zero to zero."""
+    return lambda v: mont.batch_inverse(base.spec, v)
+
+
+def _rows_level_fn(curve):
+    """One halving level on packed rows (``sw_kernels.affine_add_rows``) for
+    a prime base field; None otherwise (the reference composes unpack,
+    ``SWCurve.affine_add``, pack there: kernels K9/K10, not ported)."""
+    B = curve.base
+    if not isinstance(B, PrimeField):
+        return None
+    a_mont = None
+    if not curve.a_is_zero:
+        spec = B.spec
+        a_mont = tuple(int(v) for v in int_to_limbs(
+            (curve.a_host * spec.R) % spec.modulus, spec.n_limbs))
+    return lambda V, valid, inv_fn: sw_kernels.affine_add_rows(B.spec, a_mont, V, valid,
+                                                               inv_fn)
+
+
+def tree_bucket_sums(curve, bases_aff, scalars: torch.Tensor, c: int, num_windows: int,
+                     level_fn):
+    """Every bucket's sum, [L, W, B] a coordinate, by the affine tree, one
+    window group at a time (``_tree_plan``'s group): a group's slot arrays
+    are freed when it ends, so the peak is one group's."""
+    x, y, inf = bases_aff
+    n = scalars.shape[1]
+    n_buckets = 1 << (c - 1)
+    k, _, group = _tree_plan(n, n_buckets, num_windows)
+    stages = ([k] if k > 0 else []) + _extra_stages(n, n_buckets, k)
+    stats.update(k=k, stages=stages, group=group, finish_rounds=[], finish_tail_rounds=[],
+                 tail_lanes=[])
+    xy_rows = rows.pack(curve.base.spec, x, y, inf)
+    inv_fn = _batched_inv_fn(curve.base)
+    parts = []
+    for g0 in range(0, num_windows, group):
+        order, is_neg, _, start, counts = recode_group(
+            scalars, inf, c, num_windows, g0, min(g0 + group, num_windows))
+        negs = torch.gather(is_neg, 1, order)
+        parts.append(_affine_tree_buckets(curve, xy_rows, order, negs, start, counts,
+                                          stages, level_fn, inv_fn))
+        del order, is_neg, negs, start, counts
+    return tuple(torch.cat(coord, dim=1) for coord in zip(*parts))
+
+
+def _affine_tree_buckets(curve, xy_rows, order, negs, start, counts, stages, level_fn,
+                         inv_fn):
+    """Bucket sums [L, g, B] of one window group, by stages of aligned
+    positional halving over the sorted rows, then a capped lockstep finish.
+
+    Stage A gathers the rows in sorted order with y negated by the digit's
+    sign (K15), so every later move is run-structured.  A stage of ks levels
+    pads each bucket's run to a multiple of U = 2^ks slots, expands the runs
+    unit by unit into the padded layout (K16; a pad slot reads a row that is
+    not its own and is marked invalid), and halves it ks times (``level_fn``:
+    K11, the inversion, K12; the first level reads the validity).  After a
+    stage, unit j's U slots are one row, so the runs shrink by U.  The m_s
+    slots a window are the port's padding: the least multiple of U that
+    holds every padded run.
+
+    Unit starts are not clipped to the source's last full unit, as the
+    reference clips them: a unit that starts within U - 1 rows of the
+    source's end (the group's last window has no zero digit, so its last
+    run ends on the last row) would be shifted back, and its valid first
+    slots would read rows of another bucket.  ``expand_units`` clips each
+    row instead, so only pad slots read a repeated row."""
+    spec = curve.base.spec
+    g, n = order.shape
+    n_buckets = counts.shape[1]
+    device = order.device
+    src = rows.negate_y(spec, xy_rows[order.reshape(-1)], negs.reshape(-1))  # [g n, RW]
+    n_cur = n
+    counts_c, start_c = counts, start
+    bucket_ids = torch.arange(n_buckets, device=device).expand(g, n_buckets)
+    for ks in stages:
+        U = 1 << ks
+        counts_p = ((counts_c + U - 1) >> ks) << ks
+        start_p = torch.cumsum(counts_p, dim=1) - counts_p
+        m_s = -(-(n_cur + (U - 1) * n_buckets) // U) * U
+        mu = m_s // U
+        # the run of every unit: the largest bucket starting at or before it
+        # (a run that is empty occupies no unit, so where it shares a start
+        # with the next run the larger id, the occupant, wins); a trailing
+        # empty run may start at unit mu, which the extra column drops
+        seed = torch.zeros((g, mu + 1), dtype=torch.int64, device=device)
+        seed.scatter_reduce_(1, start_p >> ks, bucket_ids, reduce="amax")
+        run_u = torch.cummax(seed[:, :mu], dim=1).values
+        su = torch.gather(start_p, 1, run_u)
+        sc = torch.gather(start_c, 1, run_u)
+        cc = torch.gather(counts_c, 1, run_u)
+        ju = torch.arange(mu, device=device)
+        us = sc + (ju * U - su) + (torch.arange(g, device=device) * n_cur)[:, None]
+        V = rows.expand_units(src, us.reshape(-1), U)
+        del src
+        slot = torch.arange(m_s, device=device).reshape(1, mu, U)
+        valid = (slot < (su + cc)[:, :, None]).reshape(-1)  # [g m_s]
+        del run_u, su, sc, cc, us
+        for lvl in range(ks):
+            V = level_fn(V, valid if lvl == 0 else None, inv_fn)
+        del valid
+        src = V
+        n_cur = mu
+        counts_c, start_c = counts_p >> ks, start_p >> ks
+    return _finish_slots(curve, src, start_c, counts_c, n_cur)
+
+
+def _finish_slots(curve, V, start, counts, mk: int):
+    """Sum what the stages left: bucket b of window w holds counts[w, b]
+    rows from V[w mk + start[w, b]].  Lockstep mixed-add rounds (K14, K8)
+    up to the K-th largest count, then the compacted drain of the rest."""
+    spec = curve.base.spec
+    L = spec.n_limbs
+    g, n_buckets = counts.shape
+    goff = (torch.arange(g, device=counts.device) * mk)[:, None]
+    acc = tuple(a.contiguous() for a in curve.zero((g, n_buckets)))
+    counts_f = counts.reshape(-1)
+    WB = g * n_buckets
+    K = min(max(64, WB // 16), WB)
+    compact_tail = WB > 2 * K
+    rounds_max = counts_f.max()
+    rounds_full = torch.sort(counts_f).values[WB - K] if compact_tail else rounds_max
+    rounds_max, rounds_full = torch.stack([rounds_max, rounds_full]).tolist()
+    for r in range(rounds_full):
+        slots = (goff + (start + r).clamp_(max=mk - 1)).reshape(-1)
+        gx, gy, ginf = rows.unpack(spec, V[slots])
+        curve.add_mixed(acc, (gx.reshape(L, g, n_buckets), gy.reshape(L, g, n_buckets),
+                              (ginf.reshape(g, n_buckets) | (counts <= r))), out=acc)
+    if compact_tail:
+        _drain_slot_tail(curve, acc, V, start, counts_f, mk, rounds_full, rounds_max, K)
+    stats["finish_rounds"].append(rounds_full)
+    stats["finish_tail_rounds"].append(rounds_max - rounds_full if compact_tail else 0)
+    stats["tail_lanes"].append(K if compact_tail else 0)
+    return acc
+
+
+def _drain_slot_tail(curve, acc, V, start, counts_f, mk: int, r0: int, r1: int, K: int):
+    """Finish the <= K-1 overfull (window, bucket) pairs that the capped
+    rounds left, on a compacted [K]-wide batch: gather their accumulators,
+    run rounds [r0, r1) over their rows, scatter them back.  Entries picked
+    only to fill K out add infinity."""
+    spec = curve.base.spec
+    L = spec.n_limbs
+    n_buckets = start.shape[1]
+    surv = torch.argsort(-counts_f)[:K]  # flat w * n_buckets + b
+    base_off = (surv // n_buckets) * mk
+    start_c = start.reshape(-1)[surv]
+    counts_c = counts_f[surv]
+    flat = [a.reshape(L, -1) for a in acc]
+    compact = tuple(f[:, surv] for f in flat)
+    for r in range(r0, r1):
+        gx, gy, ginf = rows.unpack(spec, V[base_off + (start_c + r).clamp_(max=mk - 1)])
+        curve.add_mixed(compact, (gx, gy, ginf | (counts_c <= r)), out=compact)
+    for f, comp in zip(flat, compact):
+        f[:, surv] = comp
 
 
 def _weighted_reduce(curve, P):

@@ -1,7 +1,8 @@
 """The CUDA group-law kernels: wrappers, plain versions.
 
-Counterpart of the Jacobian half of the JAX package's ``ops/sw_pallas.py``.
-Three kernels, CUDA C++ over the device functions of ``csrc/sw.cuh``
+Counterpart of the JAX package's ``ops/sw_pallas.py`` but its affine add on
+coordinate arrays (K9, K10: no path of the port runs it yet).  Three
+kernels, CUDA C++ over the device functions of ``csrc/sw.cuh``
 (``csrc/sw_kernels.cu``), for short-Weierstrass curves with a = 0 over a
 prime field:
 
@@ -19,6 +20,22 @@ prime field:
     squarings and 7 products for the generic sum; the same selects, and
     P = inf gives from_affine(Q).
 
+Two more kernels run one halving level of the MSM's affine tree on packed
+rows (``ops/rows.py``), around the batched inversion (wrapper
+``affine_add_rows``; a prime field, any a):
+
+``affr_denom``  (K11)
+    Replaces ``_affr_denom_kernel`` (``sw_pallas.py:373``, wrapper
+    ``affine_add_rows`` :477): the slope's denominator of each pair of rows,
+    limb-major [L, m]: 2 y1 for a tangent, x2 - x1 for a chord, one for a
+    degenerate lane (an infinity or opposite points).
+``affr_post``  (K12)
+    Replaces ``_affr_post_kernel`` (``sw_pallas.py:391``): lambda, x3, y3 and
+    the infinity flag from the inverses, written as rows.  An infinity lane
+    copies where the reference selects; an opposite-points lane computes
+    with the inverse of one, as the reference does, so even its flagged
+    coordinates are the reference's.
+
 A lane branches where the TPU selects: an infinity lane copies, a P = Q
 lane computes the doubling instead of the rest of the sum; the results are
 the selects' results bit for bit (``csrc/sw.cuh``).  The reference pads
@@ -34,18 +51,20 @@ launches the kernel or raises.  The plain versions compose the field
 kernels' plain versions (``mont_kernels.mul_plain``, ``add_plain``,
 ``sub_plain``) in the kernels' formulas and select like the reference,
 and run on any device.  Launch counts are kept in ``mont_kernels.launches``
-beside the field kernels' (``jac_double``, ``jac_add``, ``jac_madd``), so
-one ``reset_launches()`` clears them all.
+beside the field kernels' (``jac_double``, ``jac_add``, ``jac_madd``,
+``affr_denom``, ``affr_post``), so one ``reset_launches()`` clears them all.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
 
 from ..fields.spec import FieldSpec
-from . import mont_kernels as mk
+from . import mont_kernels as mk, rows
 from .mont_kernels import launches
 
 # --------------------------------------------------------------------------
@@ -310,3 +329,142 @@ def madd(spec: FieldSpec, P, aff, out=None):
         _launch("jac_madd", spec, device, *_flat_args(ops), inf_b.data_ptr(), inf_bs,
                 *(o.data_ptr() for o in outs), n, one=True)
     return outs
+
+
+# --------------------------------------------------------------------------
+# one halving level of the MSM's affine tree, on packed rows (K11, K12)
+# --------------------------------------------------------------------------
+
+
+def _row_pairs(spec: FieldSpec, V: torch.Tensor, valid):
+    """V [2m, RW] -> ((x1, y1, i1), (x2, y2, i2)), the even and the odd rows
+    as [L, m] coordinates and bool [m] flags; an invalid row is infinity."""
+    x1, y1, i1 = rows.unpack_plain(spec, V[0::2])
+    x2, y2, i2 = rows.unpack_plain(spec, V[1::2])
+    if valid is not None:
+        i1, i2 = i1 | ~valid[0::2], i2 | ~valid[1::2]
+    return (x1, y1, i1), (x2, y2, i2)
+
+
+def _aff_cases(spec: FieldSpec, x1, y1, i1, x2, y2, i2):
+    """(d = x2 - x1, dbl, opp, degen) as ``csrc/sw.cuh`` ``aff_cases``."""
+    d = _sub(spec, x2, x1)
+    same_x = _is_zero(d)
+    dbl = same_x & (y1 == y2).all(dim=0) & ~_is_zero(y1)
+    opp = same_x & ~dbl
+    return d, dbl, opp, i1 | i2 | opp
+
+
+def affr_denom_plain(spec: FieldSpec, V: torch.Tensor, valid=None) -> torch.Tensor:
+    """The slope denominators [L, m] of the pairs of V: 2 y1 (tangent),
+    x2 - x1 (chord), one (a degenerate lane)."""
+    (x1, y1, i1), (x2, y2, i2) = _row_pairs(spec, V, valid)
+    d, dbl, _, degen = _aff_cases(spec, x1, y1, i1, x2, y2, i2)
+    den = _sel(dbl, _dbl(spec, y1), d)
+    return _sel(degen, _one(spec, den), den).contiguous()
+
+
+def affr_post_plain(spec: FieldSpec, a_mont, V: torch.Tensor, valid,
+                    inv: torch.Tensor) -> torch.Tensor:
+    """The level's result rows [m, RW] from the inverted denominators, with
+    the reference's selects: computed in every lane, then
+    x3 = i1 ? x2 : (i2 ? x1 : x3) (y3 alike),
+    inf3 = (i1 and i2) or (not i1 and not i2 and opp)."""
+    (x1, y1, i1), (x2, y2, i2) = _row_pairs(spec, V, valid)
+    _, dbl, opp, _ = _aff_cases(spec, x1, y1, i1, x2, y2, i2)
+    x1sq = _sq(spec, x1)
+    three = _add(spec, _dbl(spec, x1sq), x1sq)
+    if a_mont is not None:
+        a = torch.tensor(list(a_mont), dtype=three.dtype, device=three.device)
+        three = _add(spec, three, a.reshape(-1, 1))
+    num = _sel(dbl, three, _sub(spec, y2, y1))
+    lam = _mul(spec, num, inv)
+    x3 = _sub(spec, _sub(spec, _sq(spec, lam), x1), x2)
+    y3 = _sub(spec, _mul(spec, lam, _sub(spec, x1, x3)), y1)
+    x3 = _sel(i1, x2, _sel(i2, x1, x3))
+    y3 = _sel(i1, y2, _sel(i2, y1, y3))
+    inf3 = (i1 & i2) | (~i1 & ~i2 & opp)
+    return rows.pack_plain(spec, x3, y3, inf3)
+
+
+def _check_level(spec: FieldSpec, V: torch.Tensor, valid) -> torch.device:
+    device = rows._check_rows(spec, V)
+    if V.shape[0] % 2:
+        raise ValueError(f"a level takes an even number of rows, not {V.shape[0]}")
+    if valid is not None:
+        rows._check_mask("valid", valid, V.shape[0], device)
+    return device
+
+
+@functools.lru_cache(maxsize=None)
+def _words_arg(limbs: tuple):
+    """16-bit limbs -> the C array of their 32-bit words."""
+    return (ctypes.c_uint32 * (len(limbs) // 2))(
+        *[limbs[2 * k] | (limbs[2 * k + 1] << 16) for k in range(len(limbs) // 2)])
+
+
+def affr_denom(spec: FieldSpec, V: torch.Tensor, valid=None) -> torch.Tensor:
+    """K11: the slope denominators [L, m] of the m pairs of V [2m, RW]
+    (rows 2i and 2i + 1); ``valid``: optional bool [2m], an invalid row
+    counts as infinity."""
+    device = _check_level(spec, V, valid)
+    if device.type == "cpu":
+        return affr_denom_plain(spec, V, valid)
+    m = V.shape[0] // 2
+    den = torch.empty((spec.n_limbs, m), dtype=torch.int32, device=device)
+    if m:
+        from ..kernels import build
+
+        V = V.contiguous()
+        vptr = valid.contiguous().data_ptr() if valid is not None else None
+        lib = build.library("sw_kernels", spec.n_words)
+        with torch.cuda.device(device):
+            code = lib.affr_denom_launch(
+                V.data_ptr(), vptr, den.data_ptr(), m, mk._p_words_arg(spec), spec.inv32,
+                mk._one_words_arg(spec), torch.cuda.current_stream().cuda_stream)
+        launches["affr_denom"] += 1
+        mk._raise_on_error(code, "affr_denom")
+    return den
+
+
+def affr_post(spec: FieldSpec, a_mont, V: torch.Tensor, valid,
+              inv: torch.Tensor) -> torch.Tensor:
+    """K12: the result rows [m, RW] of the level, given the inverses
+    ``inv`` [L, m] of ``affr_denom``'s denominators.  ``a_mont``: the
+    curve's a as Montgomery-form 16-bit limbs, or None for a = 0."""
+    device = _check_level(spec, V, valid)
+    m = V.shape[0] // 2
+    mk._check_elems(spec, inv)
+    if tuple(inv.shape) != (spec.n_limbs, m) or inv.device != device:
+        raise ValueError(f"inv must be [{spec.n_limbs}, {m}] on {device}")
+    if device.type == "cpu":
+        return affr_post_plain(spec, a_mont, V, valid, inv)
+    out = torch.empty((m, V.shape[1]), dtype=torch.int32, device=device)
+    if m:
+        from ..kernels import build
+
+        V, inv = V.contiguous(), inv.contiguous()
+        vptr = valid.contiguous().data_ptr() if valid is not None else None
+        a_words = _words_arg(tuple(a_mont) if a_mont is not None else (0,) * spec.n_limbs)
+        lib = build.library("sw_kernels", spec.n_words)
+        with torch.cuda.device(device):
+            code = lib.affr_post_launch(
+                V.data_ptr(), vptr, inv.data_ptr(), out.data_ptr(), m,
+                mk._p_words_arg(spec), spec.inv32, a_words, int(a_mont is not None),
+                torch.cuda.current_stream().cuda_stream)
+        launches["affr_post"] += 1
+        mk._raise_on_error(code, "affr_post")
+    return out
+
+
+def affine_add_rows(spec: FieldSpec, a_mont, V: torch.Tensor, valid,
+                    inv_fn) -> torch.Tensor:
+    """One halving level on packed rows: V [2m, RW] (pairs interleaved even,
+    odd) -> result rows [m, RW], P + Q by the affine chord/tangent law with
+    every exceptional case.  ``valid``: optional bool [2m] (the first level
+    of a stage), an invalid slot counts as infinity.  ``inv_fn`` inverts an
+    [L, m] batch, zero to zero (``mont.batch_inverse``).  Bit for bit the
+    reference's ``sw_pallas.affine_add_rows``, and so its unpack, affine_add,
+    pack: K11, the inversion (K2-K4), K12."""
+    den = affr_denom(spec, V, valid)
+    return affr_post(spec, a_mont, V, valid, inv_fn(den))

@@ -19,18 +19,26 @@ division, square roots), (7) holds the group-law kernels (Jacobian double,
 add, mixed add) against their plain versions on planted exceptional lanes
 and on real G1 points, (8) runs the G1 MSM — ``entry.g1_msm`` at 2^16,
 2^18 and 2^20 and ``msm.msm_chunks`` at 2^24 — against host oracles, step
-by step and under ``torch.profiler`` at 2^20, and (9) the group law's other
+by step and under ``torch.profiler`` at 2^20, (9) the group law's other
 paths (scalar multiplication, cofactor clearing, subgroup checks, the small
-MSM).  Every comparison is bit-exact (tolerance 0: outputs are canonical
-integers).  One JSON object per line; the last line
-is ``{"ok": true, "device": {...}}``.
+MSM), (10) holds the affine tree's kernels (row pack, unpack, y negation,
+unit expansion; the halving level's denominator and completion) against
+their plain versions, and (11) runs the G1 MSM through the affine tree at
+the sizes of (8) against the host oracle, both bucket paths in turns at
+2^20, and the tree's kernels at the shapes of the 2^20 MSM.  Phases 7-8
+run the lockstep bucket path and 11 the tree, whatever
+``config.msm_affine_tree`` says.  Every comparison is bit-exact (tolerance
+0: outputs are canonical integers).  One JSON object per line; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import operator
 import random
+import re
 import subprocess
 import sys
 import time
@@ -133,6 +141,15 @@ def mismatches(got: torch.Tensor, want: torch.Tensor) -> tuple[int, int]:
         raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
     diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
     return int((diff != 0).sum().item()), int(diff.max().item()) if diff.numel() else 0
+
+
+def tuple_mismatches(got, want) -> tuple[int, int]:
+    """``mismatches`` over a tensor or a tuple of them (flags as 0/1)."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    as_int = lambda t: t.to(torch.int32) if t.dtype == torch.bool else t  # noqa: E731
+    bad = [mismatches(as_int(g), as_int(w)) for g, w in zip(got, want)]
+    return sum(b for b, _ in bad), max(e for _, e in bad)
 
 
 def limbs_to_ints(arr: np.ndarray) -> list:
@@ -835,11 +852,6 @@ def sw_operands(spec, n: int, rng: np.random.Generator, device, planted: bool):
     return (x1, y1, z1), (x2, y2, z2), inf2
 
 
-def sw_mismatches(got, want) -> tuple[int, int]:
-    bad = [mismatches(g, w) for g, w in zip(got, want)]
-    return sum(b for b, _ in bad), max(e for _, e in bad)
-
-
 def check_sw_kernels(spec, rng, device):
     """K6, K7 and K8 for one field against their plain versions on ragged n
     with planted lanes, and the operand forms the MSM gives them: K8
@@ -850,9 +862,9 @@ def check_sw_kernels(spec, rng, device):
     for n in (1, 127, 4097, 65539):
         P, Q, inf2 = sw_operands(spec, n, rng, device, planted=n > 96)
         aff = (Q[0], Q[1], inf2)
-        bad6 = sw_mismatches(swk.double(spec, P), swk.double_plain(spec, *P))
-        bad7 = sw_mismatches(swk.add(spec, P, Q), swk.add_plain(spec, *P, *Q))
-        bad8 = sw_mismatches(swk.madd(spec, P, aff), swk.madd_plain(spec, *P, *aff))
+        bad6 = tuple_mismatches(swk.double(spec, P), swk.double_plain(spec, *P))
+        bad7 = tuple_mismatches(swk.add(spec, P, Q), swk.add_plain(spec, *P, *Q))
+        bad8 = tuple_mismatches(swk.madd(spec, P, aff), swk.madd_plain(spec, *P, *aff))
         cases.append({"n": n, "planted": n > 96, "double": bad6[0], "add": bad7[0],
                       "madd": bad8[0], "max_abs_err": max(bad6[1], bad7[1], bad8[1])})
     # K8 in place, Q as strided views of point-major rows [n, 2L]
@@ -863,10 +875,10 @@ def check_sw_kernels(spec, rng, device):
     want = swk.madd_plain(spec, *P, Q[0], Q[1], inf2)
     acc = tuple(c.clone() for c in P)
     swk.madd(spec, acc, aff, out=acc)
-    bad_rows = sw_mismatches(acc, want)
+    bad_rows = tuple_mismatches(acc, want)
     # K7 with one Q for every lane (lane stride 0)
     Q1 = tuple(c[:, 5:6].contiguous() for c in Q)
-    bad_bc = sw_mismatches(swk.add(spec, P, Q1), swk.add_plain(spec, *P, *Q1))
+    bad_bc = tuple_mismatches(swk.add(spec, P, Q1), swk.add_plain(spec, *P, *Q1))
     torch.cuda.synchronize()
     return {"field": spec.name, "words": spec.n_words, "ragged": cases,
             "madd_in_place_point_major_rows": bad_rows[0],
@@ -987,7 +999,7 @@ def check_sw_main_shapes(device, rng, log_n: int, log_wide: int = 20):
     spec = bls12_381.fq_spec
     L = spec.n_limbs
     n = 1 << log_n
-    c, W = msm.plan_windows(255, msm.default_window_size(n), n)
+    c, W = msm.plan_windows(255, msm.default_window_size(n), n, tree=False)
     B = 1 << (c - 1)
     G = min(B, 1 << (((B - 1).bit_length() + 1) // 2))
     out = {}
@@ -998,7 +1010,7 @@ def check_sw_main_shapes(device, rng, log_n: int, log_wide: int = 20):
     rows = torch.cat([Q[0].T, Q[1].T], dim=1).contiguous()
     aff = (rows[:, :L].T, rows[:, L:].T, inf2)
     want, plain_ms = wall_ms(lambda: swk.madd_plain(spec, *P, *aff))
-    bad = sw_mismatches(swk.madd(spec, P, aff), want)
+    bad = tuple_mismatches(swk.madd(spec, P, aff), want)
     del want
     out["jac_madd"] = with_bound(
         {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
@@ -1012,7 +1024,7 @@ def check_sw_main_shapes(device, rng, log_n: int, log_wide: int = 20):
     Qw = tuple(t.reshape(L, m, 2)[..., 1] for t in sw_operands(spec, 2 * m, rng, device,
                                                                 planted=False)[0])
     want, plain_ms = wall_ms(lambda: swk.add_plain(spec, *P, *Qw))
-    bad = sw_mismatches(swk.add(spec, P, Qw), want)
+    bad = tuple_mismatches(swk.add(spec, P, Qw), want)
     out["jac_add"] = with_bound(
         {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
          "ms": device_ms(lambda: swk.add(spec, P, Qw), 20),
@@ -1022,10 +1034,10 @@ def check_sw_main_shapes(device, rng, log_n: int, log_wide: int = 20):
     # K6 at batch () and at [L, 2^20]
     P1 = tuple(t[:, 0] for t in sw_operands(spec, 1, rng, device, planted=False)[0])
     want, plain1 = wall_ms(lambda: swk.double_plain(spec, *P1))
-    bad1 = sw_mismatches(swk.double(spec, P1), want)
+    bad1 = tuple_mismatches(swk.double(spec, P1), want)
     Pn, _, _ = sw_operands(spec, 1 << log_wide, rng, device, planted=False)
     want, plain_n = wall_ms(lambda: swk.double_plain(spec, *Pn))
-    badn = sw_mismatches(swk.double(spec, Pn), want)
+    badn = tuple_mismatches(swk.double(spec, Pn), want)
     del want
     wide = with_bound({"ms": device_ms(lambda: swk.double(spec, Pn), 10),
                        "plain_ms": plain_n, "shape": [L, 1 << log_wide]},
@@ -1078,7 +1090,8 @@ def tiled_oracle(curve, pts: list, scalars: np.ndarray):
 def run_msm_path(device, rng, rng_host, gpu):
     """``entry.g1_msm`` at 2^16, 2^18 and 2^20 and ``msm.msm_chunks`` at
     2^24 on 256 tiled random bases, each against the host oracle; and
-    2^16 distinct bases k_i G against (sum s_i k_i) G."""
+    2^16 distinct bases k_i G against (sum s_i k_i) G (the caller picks the
+    bucket path)."""
     from algebra_tpu_torch import convert, entry
     from algebra_tpu_torch.curves.instances import bls12_381
     from algebra_tpu_torch.ops import mont_kernels as mk, msm
@@ -1144,7 +1157,7 @@ def msm_phase_times(curve, aff256, sc_np, device) -> dict:
     x, y, inf = (a.repeat(1, n // 256) if a.ndim == 2 else a.repeat(n // 256)
                  for a in aff256)
     sc = convert.from_reference(sc_np, device)
-    c, W = msm.plan_windows(255, msm.default_window_size(n), n)
+    c, W = msm.plan_windows(255, msm.default_window_size(n), n, tree=False)
     out = {}
     (order_s, start, counts), out["recode_ms"] = wall_ms(lambda: msm.recode(sc, inf, c, W))
     table, out["table_ms"] = wall_ms(lambda: msm.signed_table(curve, x, y))
@@ -1265,11 +1278,406 @@ def run_small_group_paths(device, rng, rng_host, gpu):
     return {"phase": "small_group_paths", "passed": done, "gpu": gpu}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the affine tree's kernels (K11-K16) against their plain versions
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def bucket_path(tree: bool):
+    """Run the MSM with ``config.msm_affine_tree`` = tree."""
+    from algebra_tpu_torch import config
+
+    saved = config.msm_affine_tree
+    config.msm_affine_tree = tree
+    try:
+        yield
+    finally:
+        config.msm_affine_tree = saved
+
+
+def check_row_kernels(spec, rng, device):
+    """K13-K16 for one word count against their plain versions, for ragged
+    n: pack, unpack (and the round trip), negate_y with y = 0 lanes, and
+    expand_units for U = 1, 2, 8, 16 with the last unit ending at the last
+    row of src and one starting on it (its rows past the end clipped)."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.ops import rows
+
+    cases = []
+    for n in (1, 31, 4097, 65539):
+        x = convert.from_reference(random_limbs(spec, n, rng), device)
+        y = convert.from_reference(random_limbs(spec, n, rng), device)
+        y[:, :: 7] = 0
+        inf = torch.from_numpy(rng.integers(0, 8, size=n) == 0).to(device)
+        packed = rows.pack(spec, x, y, inf)
+        k13 = tuple_mismatches(packed, rows.pack_plain(spec, x, y, inf))
+        k14 = tuple_mismatches(rows.unpack(spec, packed), rows.unpack_plain(spec, packed))
+        trip = tuple_mismatches(rows.unpack(spec, packed), (x, y, inf))
+        neg = torch.from_numpy(rng.integers(0, 2, size=n) == 1).to(device)
+        k15 = tuple_mismatches(rows.negate_y(spec, packed, neg),
+                               rows.negate_y_plain(spec, packed, neg))
+        k16 = 0
+        for U in (1, 2, 8, 16):
+            us = torch.from_numpy(rng.integers(0, n, size=1000)).to(device)
+            us[-2], us[-1] = max(n - U, 0), n - 1
+            k16 += tuple_mismatches(rows.expand_units(packed, us, U),
+                                    rows.expand_units_plain(packed, us, U))[0]
+        cases.append({"n": n, "pack": k13[0], "unpack": k14[0], "round_trip": trip[0],
+                      "negate_y": k15[0], "expand_units": k16,
+                      "max_abs_err": max(k13[1], k14[1], k15[1], trip[1])})
+    torch.cuda.synchronize()
+    return {"field": spec.name, "words": spec.n_words, "row_words": rows.row_width(spec),
+            "ragged": cases}
+
+
+def level_operands(spec, m: int, rng: np.random.Generator, device):
+    """Rows V [2m, RW] of m pairs of random coordinates, planted: pair 0
+    P = inf, 1 Q = inf, 2 both, 3 P = Q (tangent), 4 P = -Q, 5 equal y
+    with x apart, 6 same x with y1 = y2 = 0 (opposite, not a tangent); a
+    whole warp each of tangents (64-95), opposite points (96-127), equal y
+    (128-159), P = inf (160-191); and a valid mask [2m], 1 in 5 invalid,
+    with a whole warp of invalid pairs (192-223).  The laws are polynomial
+    identities, so the coordinates need no curve."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.ops import mont, rows
+
+    x1, y1, x2, y2 = (convert.from_reference(random_limbs(spec, m, rng), device)
+                      for _ in range(4))
+    i1 = torch.from_numpy(rng.integers(0, 8, size=m) == 0).to(device)
+    i2 = torch.from_numpy(rng.integers(0, 8, size=m) == 0).to(device)
+    lane = torch.arange(m, device=device)
+    warp = lambda lo: (lane >= lo) & (lane < lo + 32)  # noqa: E731
+    tangent = (lane == 3) | warp(64)
+    opposite = (lane == 4) | warp(96)
+    equal_y = (lane == 5) | warp(128)
+    zero_y = lane == 6
+    same = tangent | opposite | equal_y | zero_y
+    i1 = torch.where(same, False, (i1 | (lane == 0) | (lane == 2) | warp(160)))
+    i2 = torch.where(same, False, (i2 | (lane == 1) | (lane == 2)) & ~warp(160))
+    x2 = torch.where(tangent | opposite | zero_y, x1, x2)
+    y1 = torch.where(zero_y, 0, y1)
+    y2 = torch.where(tangent | equal_y, y1,
+                     torch.where(opposite, mont.neg(spec, y1), torch.where(zero_y, 0, y2)))
+    def pair(a, b):  # a's and b's lanes interleaved
+        return torch.stack([a, b], dim=-1).reshape(a.shape[:-1] + (2 * m,))
+
+    V = rows.pack(spec, pair(x1, x2), pair(y1, y2), pair(i1, i2))
+    valid = torch.from_numpy(rng.integers(0, 5, size=2 * m) != 0).to(device)
+    valid[2 * 192 : 2 * 224] = False
+    return V, valid
+
+
+def check_level_kernels(spec, rng, device, a_mont=None, sizes=(4099, 300)):
+    """K11 and K12 for one word count against their plain versions on
+    planted pairs, with and without the valid mask, ragged numbers of
+    pairs."""
+    from algebra_tpu_torch.ops import mont_kernels as mk, sw_kernels as swk
+
+    cases = []
+    for m in sizes:
+        V, valid = level_operands(spec, m, rng, device)
+        for v in (valid, None):
+            den = swk.affr_denom(spec, V, v)
+            k11 = tuple_mismatches(den, swk.affr_denom_plain(spec, V, v))
+            inv = mk.batch_inverse(spec, den)
+            k12 = tuple_mismatches(swk.affr_post(spec, a_mont, V, v, inv),
+                                   swk.affr_post_plain(spec, a_mont, V, v, inv))
+            cases.append({"pairs": m, "valid": v is not None, "affr_denom": k11[0],
+                          "affr_post": k12[0], "max_abs_err": max(k11[1], k12[1])})
+    torch.cuda.synchronize()
+    return {"field": spec.name, "words": spec.n_words, "a": a_mont is not None,
+            "cases": cases}
+
+
+def check_level_on_curve(device, rng_host):
+    """One level on 64 pairs of real G1 points (P + Q, P + P, P + (-P),
+    P + inf, inf + inf), through the kernels and the blocked inversion,
+    against the host group law."""
+    from algebra_tpu_torch.curves.instances import bls12_381
+    from algebra_tpu_torch.ops import mont, rows, sw_kernels as swk
+
+    curve = bls12_381.g1(device)
+    spec = curve.base.spec
+    ps, qs = curve.random_host(rng_host, 64), curve.random_host(rng_host, 64)
+    qs[5], ps[6] = ps[5], None
+    qs[7] = (ps[7][0], spec.modulus - ps[7][1])
+    ps[8] = qs[8] = None
+    pts = [p for pq in zip(ps, qs) for p in pq]
+    V = rows.pack(spec, *curve.from_host(pts))
+    out = swk.affine_add_rows(spec, None, V, None, lambda d: mont.batch_inverse(spec, d))
+    got = curve.to_host(curve.from_affine(rows.unpack(spec, out)))
+    want = [curve.host_add(p, q) for p, q in zip(ps, qs)]
+    return {"pairs": 64, "host_oracle_mismatches": sum(g != w for g, w in zip(got, want))}
+
+
+def row_case_failures(cases) -> list:
+    bad = []
+    for case in cases:
+        for c in case.get("ragged", case.get("cases", [])):
+            counts = [v for k, v in c.items()
+                      if k not in ("n", "pairs", "valid", "max_abs_err")]
+            if any(counts):
+                bad.append(c)
+    return bad
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the G1 MSM through the affine tree
+# ---------------------------------------------------------------------------
+
+
+def capture_first_calls(run):
+    """Run ``run()`` with the tree's row and level wrappers recording the
+    operands of their first call (copies), for timing them at the shapes
+    the path gives them.  Returns (run's result, {name: operands})."""
+    from algebra_tpu_torch.ops import rows, sw_kernels as swk
+
+    seen, saved = {}, []
+    for mod, name in ((rows, "pack"), (rows, "negate_y"), (rows, "expand_units"),
+                      (rows, "unpack"), (swk, "affr_denom"), (swk, "affr_post")):
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def record(*args, _fn=fn, _name=name):
+            if _name not in seen:
+                seen[_name] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                    for a in args)
+            return _fn(*args)
+        setattr(mod, name, record)
+    try:
+        out = run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return out, seen
+
+
+def check_tree_main_shapes(seen: dict) -> dict:
+    """K11-K16 on the operands the 2^20 tree MSM gave their first call,
+    against their plain versions, with device times, the plain versions'
+    times, one PyTorch call's time where one computes the same function,
+    and data-counted bounds."""
+    from algebra_tpu_torch.ops import rows, sw_kernels as swk
+
+    out = {}
+    spec, x, y, inf = seen["pack"]
+    L, RW, n = spec.n_limbs, rows.row_width(spec), x.shape[1]
+    pad = x.new_zeros((RW - 2 * L - 1, n))
+    want, plain_ms = wall_ms(lambda: rows.pack_plain(spec, x, y, inf))
+    bad = tuple_mismatches(rows.pack(spec, x, y, inf), want)
+    lib = lambda: torch.cat([x, y, inf[None].int(), pad]).T.contiguous()  # noqa: E731
+    bad_lib = tuple_mismatches(lib(), want)[0]
+    out["pack"] = with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: rows.pack(spec, x, y, inf), 20),
+         "library_ms": device_ms(lib, 20), "library_call": "torch.cat + .T.contiguous()",
+         "library_mismatches": bad_lib, "shape": [n, RW]},
+        n * (2 * L * 4 + 1) + n * RW * 4, 0)
+
+    spec, R = seen["unpack"]
+    m = R.shape[0]
+    want, plain_ms = wall_ms(lambda: rows.unpack_plain(spec, R))
+    bad = tuple_mismatches(rows.unpack(spec, R), want)
+    lib = lambda: (R[:, :L].T.contiguous(), R[:, L : 2 * L].T.contiguous(),  # noqa: E731
+                   R[:, 2 * L] != 0)
+    out["unpack"] = with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: rows.unpack(spec, R), 50),
+         "library_ms": device_ms(lib, 50), "library_call": "the .T slices, .contiguous()",
+         "shape": [m, RW]},
+        m * (2 * L + 1) * 4 + m * (2 * L * 4 + 1), 0)
+    del R
+
+    spec, R, neg = seen["negate_y"]
+    m = R.shape[0]
+    want, plain_ms = wall_ms(lambda: rows.negate_y_plain(spec, R, neg))
+    bad = tuple_mismatches(rows.negate_y(spec, R, neg), want)
+    del want
+    out["negate_y"] = with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: rows.negate_y(spec, R, neg), 10), "library_ms": None,
+         "library_call": "none: no PyTorch call negates a 381-bit field element",
+         "shape": [m, RW]},
+        2 * m * RW * 4 + m, 0)
+    del R, neg
+
+    src, us, U = seen["expand_units"]
+    S, mu = src.shape[0], us.shape[0]
+    idx = (us[:, None] + torch.arange(U, device=us.device)).reshape(-1).clamp(0, S - 1)
+    want, plain_ms = wall_ms(lambda: rows.expand_units_plain(src, us, U))
+    bad = tuple_mismatches(rows.expand_units(src, us, U), want)
+    lib = lambda: torch.index_select(src, 0, idx)  # noqa: E731
+    bad_lib = tuple_mismatches(lib(), want)[0]
+    del want
+    out["expand_units"] = with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: rows.expand_units(src, us, U), 10),
+         "library_ms": device_ms(lib, 10),
+         "library_call": "torch.index_select with the expanded row index",
+         "library_mismatches": bad_lib, "shape": [mu * U, RW], "U": U, "src_rows": S},
+        2 * mu * U * RW * 4 + mu * 8, 0)
+    del src, us, idx
+
+    spec, V, valid = seen["affr_denom"]
+    m = V.shape[0] // 2
+    want, plain_ms = wall_ms(lambda: swk.affr_denom_plain(spec, V, valid))
+    bad = tuple_mismatches(swk.affr_denom(spec, V, valid), want)
+    del want
+    out["affr_denom"] = with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: swk.affr_denom(spec, V, valid), 10), "library_ms": None,
+         "library_call": "none: no PyTorch call does field arithmetic on curve points",
+         "shape": [2 * m, RW]},
+        2 * m * ((2 * L + 1) * 4 + 1) + m * L * 4, 0)
+
+    spec, a_mont, V, valid, inv = seen["affr_post"]
+    want, plain_ms = wall_ms(lambda: swk.affr_post_plain(spec, a_mont, V, valid, inv))
+    bad = tuple_mismatches(swk.affr_post(spec, a_mont, V, valid, inv), want)
+    del want
+    (x1, y1, i1), (x2, y2, i2) = swk._row_pairs(spec, V, valid)
+    _, dbl, _, _ = swk._aff_cases(spec, x1, y1, i1, x2, y2, i2)
+    live = ~(i1 | i2)
+    n_live, n_dbl = int(live.sum().item()), int((live & dbl).sum().item())
+    del x1, y1, x2, y2
+    sq, mul = mads_per_square(spec), mads_per_product(spec)
+    out["affr_post"] = with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: swk.affr_post(spec, a_mont, V, valid, inv), 10),
+         "library_ms": None, "library_call": "none: as affr_denom",
+         "shape": [2 * m, RW], "lanes_computed": n_live, "tangent_lanes": n_dbl},
+        2 * m * ((2 * L + 1) * 4 + 1) + m * L * 4 + m * RW * 4,
+        n_live * (2 * mul + sq) + n_dbl * sq)
+    torch.cuda.synchronize()
+    return out
+
+
+def tree_phase_times(curve, aff256, sc_np, device) -> dict:
+    """The 2^20 tree MSM step by step, each synchronised (host clock): the
+    bucket phase (packing, per group: recode, stage A, the stages and the
+    finish), the weighted reduction, the Horner fold, to_affine; then the
+    whole MSM once under torch.profiler: device time by kernel, by the
+    tree's kernel families, and the busy share of the call."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.ops import msm
+
+    n = sc_np.shape[1]
+    x, y, inf = (a.repeat(1, n // 256) if a.ndim == 2 else a.repeat(n // 256)
+                 for a in aff256)
+    sc = convert.from_reference(sc_np, device)
+    out = {}
+    with bucket_path(True):
+        c, W = msm.plan_windows(255, msm.default_window_size(n), n)
+        level_fn = msm._rows_level_fn(curve)
+        buckets, out["tree_buckets_ms"] = wall_ms(
+            lambda: msm.tree_bucket_sums(curve, (x, y, inf), sc, c, W, level_fn))
+        sums, out["reduction_ms"] = wall_ms(lambda: msm._weighted_reduce(curve, buckets))
+        total, out["fold_ms"] = wall_ms(lambda: msm._horner_fold(curve, sums, c))
+        _, out["to_affine_ms"] = wall_ms(lambda: curve.to_affine(total))
+        del buckets, sums
+
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            _, wall = wall_ms(lambda: curve.to_affine(msm.msm(curve, (x, y, inf), sc)))
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    busy_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:16]
+    families = ("expand_units", "negate_y", "pack", "unpack", "affr_denom", "affr_post",
+                "inv_prefix", "inv_fermat", "inv_backward", "jac_madd", "jac_add",
+                "jac_double", "mont_mul")
+    out["profiled"] = {
+        "wall_ms": wall,
+        "device_ms": busy_ms if by_kernel else "not measured",
+        "device_busy_share": busy_ms / wall if by_kernel else "not measured",
+        "device_ms_by_kernel": {k[:90]: v for k, v in top},
+        "kernel_device_ms": {  # by whole name: pack_kernel is in unpack_kernel
+            name: sum(v for k, v in by_kernel.items() if re.search(rf"\b{name}_kernel<", k))
+            for name in families},
+    }
+    return out
+
+
+def run_tree_path(device, rng, rng_host, gpu):
+    """``entry.g1_msm`` through the affine tree at 2^16, 2^18 and 2^20 and
+    ``msm.msm_chunks`` at 2^24, on 256 tiled random bases, each against the
+    host oracle, with the tree's plan, launches and peak memory; the 2^20
+    MSM on both bucket paths in turns (lockstep, tree, tree, lockstep);
+    the tree's steps and profile at 2^20; and its kernels at the shapes of
+    their first call in the 2^20 MSM."""
+    from algebra_tpu_torch import convert, entry
+    from algebra_tpu_torch.curves.instances import bls12_381
+    from algebra_tpu_torch.ops import mont_kernels as mk, msm
+
+    curve = bls12_381.g1(device)
+    pts, aff256 = g1_bases_256(curve, rng_host)
+    host_scalars = random_scalars(1 << MSM_CHUNKED, rng)
+    sizes, main_counts = [], None
+    with bucket_path(True):
+        for log_n in MSM_LOGS + (MSM_CHUNKED,):
+            n = 1 << log_n
+            bases = tuple(a.repeat(1, n // 256) if a.ndim == 2 else a.repeat(n // 256)
+                          for a in aff256)
+            sc_np = host_scalars[:, :n]
+            sc = convert.from_reference(sc_np, device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mk.reset_launches()
+            if log_n in MSM_LOGS:
+                res, ms = wall_ms(lambda: entry.g1_msm(bases, sc, device=device))
+                route = "entry.g1_msm"
+            else:
+                res, ms = wall_ms(lambda: msm.msm_chunks(curve, bases, sc,
+                                                         chunk=1 << MSM_CHUNK))
+                route = f"msm.msm_chunks(chunk=2^{MSM_CHUNK})"
+            counts = dict(mk.launches)
+            plan = dict(msm.stats)
+            peak = torch.cuda.max_memory_allocated()
+            if curve.to_host(res) != tiled_oracle(curve, pts, sc_np):
+                raise AssertionError(f"tree MSM at 2^{log_n} differs from the host oracle")
+            if log_n == MSM_LOGS[-1]:
+                main_counts = counts
+            sizes.append({"log_n": log_n, "route": route, "ms": ms, "plan": plan,
+                          "launches": counts, "peak_memory_bytes": peak,
+                          "host_oracle": "equal"})
+            del bases, res, sc
+    n = 1 << MSM_LOGS[-1]
+    bases = tuple(a.repeat(1, n // 256) if a.ndim == 2 else a.repeat(n // 256)
+                  for a in aff256)
+    sc = convert.from_reference(host_scalars[:, :n], device)
+    turns = []
+    for tree in (False, True, True, False):
+        with bucket_path(tree):
+            res, ms = wall_ms(lambda: entry.g1_msm(bases, sc, device=device))
+        turns.append({"path": "tree" if tree else "lockstep", "ms": ms})
+        if curve.to_host(res) != tiled_oracle(curve, pts, host_scalars[:, :n]):
+            raise AssertionError("2^20 MSM differs from the host oracle in the turns")
+    phases = tree_phase_times(curve, aff256, host_scalars[:, :n], device)
+    with bucket_path(True):
+        _, seen = capture_first_calls(lambda: entry.g1_msm(bases, sc, device=device))
+    del bases, sc
+    kernels = check_tree_main_shapes(seen)
+    del seen
+    need = ("pack", "unpack", "negate_y", "expand_units", "affr_denom", "affr_post",
+            "inv_prefix", "inv_fermat", "inv_backward", "jac_madd", "jac_add", "jac_double")
+    idle = [k for k in need if main_counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"the tree MSM launched no {idle}: {main_counts}")
+    torch.cuda.synchronize()
+    line = {"phase": "tree_path", "curve": "bls12_381.G1", "sizes": sizes,
+            f"turns_2^{MSM_LOGS[-1]}": turns, f"phases_2^{MSM_LOGS[-1]}": phases,
+            "kernel_shapes": kernels, "gpu": gpu}
+    return main_counts, line, kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    from algebra_tpu_torch.bigint import batch_int_to_limbs
     from algebra_tpu_torch.curves.instances import bls12_381, mnt4_753
     from algebra_tpu_torch.fields.spec import field_spec
     from algebra_tpu_torch.kernels import build
@@ -1322,6 +1730,21 @@ def main() -> int:
     failed = [c for case in sw_cases for c in sw_case_failures(case)]
     if failed or on_curve["host_oracle_mismatches"]:
         raise AssertionError(f"group-law kernel disagrees: {failed} {on_curve}")
+    t0 = time.time()
+    row_cases = [check_row_kernels(s, rng, device)
+                 for s in (full_width, bls12_381.fq_spec, mnt4_753.fq_spec)]
+    mnt_a = tuple(int(v) for v in batch_int_to_limbs(
+        [mnt4_753.COEFF_A * mnt4_753.fq_spec.R % mnt4_753.fq_spec.modulus],
+        mnt4_753.fq_spec.n_limbs)[:, 0])
+    level_cases = [check_level_kernels(full_width, rng, device),
+                   check_level_kernels(bls12_381.fq_spec, rng, device),
+                   check_level_kernels(mnt4_753.fq_spec, rng, device, a_mont=mnt_a)]
+    level_on_curve = check_level_on_curve(device, rng_host)
+    emit({"phase": "rows_kernel_cases", "rows": row_cases, "levels": level_cases,
+          "g1_pairs": level_on_curve, "seconds": time.time() - t0, "gpu": gpu})
+    failed = row_case_failures(row_cases + level_cases)
+    if failed or level_on_curve["host_oracle_mismatches"]:
+        raise AssertionError(f"tree kernel disagrees: {failed} {level_on_curve}")
     sw_main, msm_shape = check_sw_main_shapes(device, rng, MSM_LOGS[-1])
     bad = {k: v for k, v in sw_main.items() if v["mismatches"]}
     if bad:
@@ -1334,18 +1757,27 @@ def main() -> int:
     emit(inverse_line)
     emit(run_small_inverse_paths(device, rng, gpu))
     t0 = time.time()
-    msm_counts, msm_line = run_msm_path(device, rng, rng_host, gpu)
+    with bucket_path(False):
+        msm_counts, msm_line = run_msm_path(device, rng, rng_host, gpu)
     emit({**msm_line, "kernel_shapes": msm_shape, "seconds": time.time() - t0})
     t0 = time.time()
     emit({**run_small_group_paths(device, rng, rng_host, gpu), "seconds": time.time() - t0})
+    t0 = time.time()
+    tree_counts, tree_line, tree_main = run_tree_path(device, rng, rng_host, gpu)
+    emit({**tree_line, "seconds": time.time() - t0})
+    bad = {k: v for k, v in tree_main.items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"tree kernel disagrees at the main shape: {bad}")
 
     # launches: K1 and K5 as the product path counted them, K2-K4 as the
     # division path did (which also ran K1 and K5: see its own line), K6-K8
-    # as the 2^20 G1 MSM did
+    # as the 2^20 G1 MSM did on the lockstep path, K11-K16 as it did through
+    # the affine tree (which also ran K2-K4 and K6-K8: see its own line)
     ntt_src = {"route": "cuda", "source": "algebra_tpu_torch/csrc/mont_kernels.cu",
                "library_ms": None, "gpu": gpu}
     inv_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/inverse_kernels.cu"}
     sw_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/sw_kernels.cu"}
+    rows_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/rows_kernels.cu"}
     rows = [
         ("mont_mul", "algebra_tpu/ops/mont_pallas.py:189", counts, k1, ntt_src),
         ("butterfly", "algebra_tpu/ops/mont_pallas.py:417", counts, k5, ntt_src),
@@ -1358,10 +1790,22 @@ def main() -> int:
          sw_src),
         ("jac_madd", "algebra_tpu/ops/sw_pallas.py:56", msm_counts, sw_main["jac_madd"],
          sw_src),
+        ("affr_denom", "algebra_tpu/ops/sw_pallas.py:373", tree_counts,
+         tree_main["affr_denom"], sw_src),
+        ("affr_post", "algebra_tpu/ops/sw_pallas.py:391", tree_counts,
+         tree_main["affr_post"], sw_src),
+        ("pack", "algebra_tpu/ops/rows_pallas.py:36", tree_counts, tree_main["pack"],
+         rows_src),
+        ("unpack", "algebra_tpu/ops/rows_pallas.py:86", tree_counts, tree_main["unpack"],
+         rows_src),
+        ("negate_y", "algebra_tpu/ops/rows_pallas.py:131", tree_counts,
+         tree_main["negate_y"], rows_src),
+        ("expand_units", "algebra_tpu/ops/rows_pallas.py:166", tree_counts,
+         tree_main["expand_units"], rows_src),
     ]
     emit({"kernels": [
         {"name": name, "replaces": replaces, "launches": path_counts[name],
-         "kernel_ms": k["ms"], **k, **src}
+         "kernel_ms": k["ms"], **src, **k}
         for name, replaces, path_counts, k, src in rows]})
     idle = [name for name, _, path_counts, _, _ in rows if path_counts[name] <= 0]
     if idle:

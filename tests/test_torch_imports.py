@@ -51,7 +51,8 @@ def test_package_imports_without_jax_or_cuda():
     assert n_modules >= 24, out.stdout
     names = set(out.stdout.split("NAMES")[1].split())
     assert {"algebra_tpu_torch.curves.sw", "algebra_tpu_torch.ops.msm",
-            "algebra_tpu_torch.ops.sw_kernels", "algebra_tpu_torch.fields.host"} <= names
+            "algebra_tpu_torch.ops.sw_kernels", "algebra_tpu_torch.fields.host",
+            "algebra_tpu_torch.ops.rows"} <= names
     assert "DEFAULT cuda" in out.stdout
 
 
@@ -70,11 +71,13 @@ def test_kernel_sources_are_in_the_package():
     from algebra_tpu_torch.kernels import build
 
     sources = {f"{src}.cu" for src in build.KERNEL_SOURCES}
-    assert sources == {"mont_kernels.cu", "inverse_kernels.cu", "sw_kernels.cu"}
-    assert sources | {"mont.cuh", "launch.cuh", "sw.cuh"} <= set(os.listdir(csrc))
-    assert set(build._HEADERS) == {"mont.cuh", "launch.cuh", "sw.cuh"}
+    assert sources == {"mont_kernels.cu", "inverse_kernels.cu", "sw_kernels.cu",
+                       "rows_kernels.cu"}
+    headers = {"mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh"}
+    assert sources | headers <= set(os.listdir(csrc))
+    assert set(build._HEADERS) == headers
     # one library per source and word count, named after a hash of the sources
     paths = {build.library_path(src, w)
              for src in build.KERNEL_SOURCES for w in build.WORD_COUNTS}
-    assert len(paths) == 9 and all("_build" in p for p in paths)
+    assert len(paths) == 12 and all("_build" in p for p in paths)
     assert set(build._signatures()) == set(build.KERNEL_SOURCES)
