@@ -13,8 +13,9 @@ which is all that the inputs and outputs of the field layer, batched
 inversion, the polynomial classes and the polynomial entry points are;
 curve points (``points_from_reference``/``points_to_reference``): affine
 ``(x, y, inf)`` triples with a bool mask and Jacobian ``(x, y, z)``
-triples, the inputs and outputs of the group law, the MSM and
-``entry.g1_msm``; and a domain's twiddle tables
+triples, twisted Edwards ``(x, y)`` pairs and extended ``(x, y, t, z)``
+points, the inputs and outputs of the group laws, the MSM and the curve
+entry points; and a domain's twiddle tables
 (``domain_from_reference``).  Other masks and int8 results (``is_zero``,
 ``legendre``, ``sqrt``'s ok) compare as plain numpy arrays and need
 nothing here.
@@ -45,15 +46,16 @@ def to_reference(t: torch.Tensor) -> np.ndarray:
 
 
 def points_from_reference(pt, device=None) -> tuple:
-    """An affine (x, y, inf) or Jacobian (x, y, z) triple of reference
-    arrays (or tensors) -> a triple of tensors on ``device``: limb arrays
-    as ``from_reference``, a bool inf mask as a bool tensor."""
+    """A point's coordinates as reference arrays (or tensors), e.g. an
+    affine (x, y, inf) or Jacobian (x, y, z) triple or a twisted Edwards
+    (x, y) pair -> a tuple of tensors on ``device``: limb arrays as
+    ``from_reference``, a bool inf mask as a bool tensor."""
     device = torch.device(device if device is not None else config.default_device)
     return tuple(_coord_from_reference(c, device) for c in pt)
 
 
 def points_to_reference(pt) -> tuple:
-    """A triple of tensors -> numpy: limb arrays as ``to_reference``, a
+    """A point's tensors -> numpy: limb arrays as ``to_reference``, a
     bool mask as a numpy bool array."""
     return tuple(c.detach().cpu().numpy() if c.dtype == torch.bool else to_reference(c)
                  for c in pt)

@@ -259,3 +259,36 @@ __device__ __forceinline__ void aff_cases(uint32_t (&d)[W], bool& dbl, bool& opp
   opp = same_x && !dbl;
   degen = i1 || i2 || opp;
 }
+
+// The rest of the affine addition of two finite points, given the inverse
+// `inv` of the denominator that aff_cases' analysis chose:
+// lambda = num * inv with num = 3 x1^2 + a for a tangent (dbl), y2 - y1
+// otherwise; x3 = lambda^2 - x1 - x2; y3 = lambda (x1 - x3) - y1.  Two
+// products and a square (a tangent one square more).  An opposite-points
+// lane computes too, with the inverse of one, as the reference does.
+template <int W>
+__device__ __forceinline__ void aff_complete(uint32_t (&x3)[W], uint32_t (&y3)[W],
+                                             const uint32_t (&x1)[W],
+                                             const uint32_t (&y1)[W],
+                                             const uint32_t (&x2)[W],
+                                             const uint32_t (&y2)[W], bool dbl,
+                                             const uint32_t (&inv)[W],
+                                             const Words<W>& a, bool has_a,
+                                             const FieldParams<W>& fp) {
+  uint32_t num[W], lam[W], t[W];
+  if (dbl) {  // num = 3 x1^2 + a
+    fsq<W>(t, x1, fp);
+    mod_add<W>(num, t, t, fp);
+    mod_add<W>(num, num, t, fp);
+    if (has_a) mod_add<W>(num, num, a.w, fp);
+  } else {
+    mod_sub<W>(num, y2, y1, fp);
+  }
+  fmul<W>(lam, num, inv, fp);
+  fsq<W>(x3, lam, fp);
+  mod_sub<W>(x3, x3, x1, fp);
+  mod_sub<W>(x3, x3, x2, fp);
+  mod_sub<W>(t, x1, x3, fp);
+  fmul<W>(y3, lam, t, fp);
+  mod_sub<W>(y3, y3, y1, fp);
+}

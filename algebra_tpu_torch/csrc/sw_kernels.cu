@@ -1,6 +1,8 @@
 // The Jacobian group-law kernels of the MSM path: K6 doubling, K7 full
-// addition, K8 mixed addition (a = 0 curves over a prime field).  Built and
-// bound as launch.cuh says; the group law itself is in sw.cuh.
+// addition, K8 mixed addition (a = 0 curves over a prime field); below them
+// the affine additions, K11/K12 on packed rows and K9/K10 on coordinate
+// arrays (any a).  Built and bound as launch.cuh says; the group law itself
+// is in sw.cuh.
 //
 // They replace the TPU kernels _double_kernel, _add_kernel and _madd_kernel
 // (algebra_tpu/ops/sw_pallas.py:111, :120, :56).  One thread per lane,
@@ -183,32 +185,133 @@ affr_post_kernel(const uint32_t* __restrict__ V, const uint8_t* __restrict__ val
       store_row<W>(out, i, x1, y1, false);
       continue;
     }
-    uint32_t d[W], num[W], lam[W], x3[W], y3[W];
+    uint32_t d[W], x3[W], y3[W];
     bool dbl, opp, degen;
     aff_cases<W>(d, dbl, opp, degen, x1, y1, i1, x2, y2, i2, fp);
-    if (dbl) {  // num = 3 x1^2 + a
-      fsq<W>(d, x1, fp);
-      mod_add<W>(num, d, d, fp);
-      mod_add<W>(num, num, d, fp);
-      if (has_a) mod_add<W>(num, num, a.w, fp);
-    } else {
-      mod_sub<W>(num, y2, y1, fp);
-    }
     load_limbs<W>(d, inv, m, i);
-    fmul<W>(lam, num, d, fp);
-    fsq<W>(x3, lam, fp);
-    mod_sub<W>(x3, x3, x1, fp);
-    mod_sub<W>(x3, x3, x2, fp);
-    mod_sub<W>(d, x1, x3, fp);
-    fmul<W>(y3, lam, d, fp);
-    mod_sub<W>(y3, y3, y1, fp);
+    aff_complete<W>(x3, y3, x1, y1, x2, y2, dbl, d, a, has_a != 0, fp);
     store_row<W>(out, i, x3, y3, opp);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The affine chord/tangent addition on coordinate arrays (SWCurve.affine_add):
+// K9 aff_denom and K10 aff_post, around the batched inversion (K2-K4).
+// They replace _aff_denom_kernel and _aff_post_kernel
+// (algebra_tpu/ops/sw_pallas.py:199, :216).  The same arithmetic as K11/K12
+// (aff_cases, aff_complete), with operands as limb-major coordinates read
+// through a limb and a lane stride (as K6-K8 read theirs) and the flags as
+// bool arrays, one byte a lane at a lane stride; neg1/neg2, when given,
+// negate y1/y2 first (0 stays 0), as the reference's _aff_neg does.  One
+// thread a lane.
+//   * K9 writes the slope's denominator, [L, n]: 2 y1 for a tangent,
+//     x2 - x1 for a chord, one for a degenerate lane (an infinity, or
+//     opposite points).  No products: bound by bytes, four coordinates and
+//     the flags in, one coordinate out.
+//   * K10 writes x3, y3 [L, n] and inf3 [n].  An infinity lane copies the
+//     other operand where the reference selects (both at infinity: x2, y2
+//     and inf); every other lane computes, an opposite-points lane with
+//     the inverse of one, so even its flagged coordinates are the
+//     reference's; inf3 = (i1 and i2) or (not i1 and not i2 and opp).
+//     Two products and a square a computed lane (a tangent one square
+//     more) against five coordinates in and two out: bytes bound it by the
+//     count, as for K12.
+// ---------------------------------------------------------------------------
+
+struct Mask {
+  const uint8_t* p;  // one byte a lane, nonzero = set; null = no mask
+  size_t bs;         // lane stride, in bytes
+};
+
+__device__ __forceinline__ bool mask_at(const Mask& m, size_t i) {
+  return m.p != nullptr && m.p[i * m.bs] != 0;
+}
+
+template <int W>
+__device__ __forceinline__ void neg_if(uint32_t (&y)[W], bool neg,
+                                       const FieldParams<W>& fp) {
+  if (neg) {
+    uint32_t zero[W] = {};
+    mod_sub<W>(y, zero, y, fp);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void load_aff_pair(
+    uint32_t (&x1)[W], uint32_t (&y1)[W], bool& i1, uint32_t (&x2)[W],
+    uint32_t (&y2)[W], bool& i2, const Operand& ox1, const Operand& oy1,
+    const Mask& mi1, const Operand& ox2, const Operand& oy2, const Mask& mi2,
+    const Mask& n1, const Mask& n2, size_t i, const FieldParams<W>& fp) {
+  load_op<W>(x1, ox1, i);
+  load_op<W>(y1, oy1, i);
+  load_op<W>(x2, ox2, i);
+  load_op<W>(y2, oy2, i);
+  i1 = mask_at(mi1, i);
+  i2 = mask_at(mi2, i);
+  neg_if<W>(y1, mask_at(n1, i), fp);
+  neg_if<W>(y2, mask_at(n2, i), fp);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+aff_denom_kernel(Operand ox1, Operand oy1, Mask mi1, Operand ox2, Operand oy2, Mask mi2,
+                 Mask n1, Mask n2, uint32_t* __restrict__ den, size_t n,
+                 FieldParams<W> fp, Words<W> one) {
+  size_t step = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
+    uint32_t x1[W], y1[W], x2[W], y2[W], d[W];
+    bool i1, i2, dbl, opp, degen;
+    load_aff_pair<W>(x1, y1, i1, x2, y2, i2, ox1, oy1, mi1, ox2, oy2, mi2, n1, n2, i, fp);
+    aff_cases<W>(d, dbl, opp, degen, x1, y1, i1, x2, y2, i2, fp);
+    if (degen) {
+      copy_words<W>(d, one.w);
+    } else if (dbl) {
+      mod_add<W>(d, y1, y1, fp);
+    }
+    store_limbs<W>(den, n, i, d);
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+aff_post_kernel(Operand ox1, Operand oy1, Mask mi1, Operand ox2, Operand oy2, Mask mi2,
+                Mask n1, Mask n2, const uint32_t* __restrict__ inv,
+                uint32_t* __restrict__ xo, uint32_t* __restrict__ yo,
+                uint8_t* __restrict__ io, size_t n, FieldParams<W> fp, Words<W> a,
+                int has_a) {
+  size_t step = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
+    uint32_t x1[W], y1[W], x2[W], y2[W];
+    bool i1, i2;
+    load_aff_pair<W>(x1, y1, i1, x2, y2, i2, ox1, oy1, mi1, ox2, oy2, mi2, n1, n2, i, fp);
+    if (i1) {
+      store_limbs<W>(xo, n, i, x2);
+      store_limbs<W>(yo, n, i, y2);
+      io[i] = i2;
+      continue;
+    }
+    if (i2) {
+      store_limbs<W>(xo, n, i, x1);
+      store_limbs<W>(yo, n, i, y1);
+      io[i] = 0;
+      continue;
+    }
+    uint32_t d[W], x3[W], y3[W];
+    bool dbl, opp, degen;
+    aff_cases<W>(d, dbl, opp, degen, x1, y1, i1, x2, y2, i2, fp);
+    load_limbs<W>(d, inv, n, i);
+    aff_complete<W>(x3, y3, x1, y1, x2, y2, dbl, d, a, has_a != 0, fp);
+    store_limbs<W>(xo, n, i, x3);
+    store_limbs<W>(yo, n, i, y3);
+    io[i] = opp;
   }
 }
 
 static inline Operand op(const void* p, size_t ls, size_t bs) {
   return Operand{(const uint32_t*)p, ls, bs};
 }
+
+static inline Mask mask(const void* p, size_t bs) { return Mask{(const uint8_t*)p, bs}; }
 
 extern "C" {
 
@@ -266,6 +369,36 @@ int affr_post_launch(const void* V, const void* valid, const void* inv, void* ou
                      int has_a, void* stream) {
   affr_post_kernel<kW><<<grid_for(m), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)V, (const uint8_t*)valid, (const uint32_t*)inv, (uint32_t*)out, m,
+      make_params(p_words, inv32), make_words(a_words), has_a);
+  return (int)cudaGetLastError();
+}
+
+int aff_denom_launch(const void* x1, size_t x1_ls, size_t x1_bs, const void* y1,
+                     size_t y1_ls, size_t y1_bs, const void* i1, size_t i1_bs,
+                     const void* x2, size_t x2_ls, size_t x2_bs, const void* y2,
+                     size_t y2_ls, size_t y2_bs, const void* i2, size_t i2_bs,
+                     const void* n1, size_t n1_bs, const void* n2, size_t n2_bs, void* den,
+                     size_t n, const uint32_t* p_words, uint32_t inv32,
+                     const uint32_t* one_words, void* stream) {
+  aff_denom_kernel<kW><<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      op(x1, x1_ls, x1_bs), op(y1, y1_ls, y1_bs), mask(i1, i1_bs), op(x2, x2_ls, x2_bs),
+      op(y2, y2_ls, y2_bs), mask(i2, i2_bs), mask(n1, n1_bs), mask(n2, n2_bs),
+      (uint32_t*)den, n, make_params(p_words, inv32), make_words(one_words));
+  return (int)cudaGetLastError();
+}
+
+int aff_post_launch(const void* x1, size_t x1_ls, size_t x1_bs, const void* y1,
+                    size_t y1_ls, size_t y1_bs, const void* i1, size_t i1_bs,
+                    const void* x2, size_t x2_ls, size_t x2_bs, const void* y2,
+                    size_t y2_ls, size_t y2_bs, const void* i2, size_t i2_bs,
+                    const void* n1, size_t n1_bs, const void* n2, size_t n2_bs,
+                    const void* inv, void* xo, void* yo, void* io, size_t n,
+                    const uint32_t* p_words, uint32_t inv32, const uint32_t* a_words,
+                    int has_a, void* stream) {
+  aff_post_kernel<kW><<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      op(x1, x1_ls, x1_bs), op(y1, y1_ls, y1_bs), mask(i1, i1_bs), op(x2, x2_ls, x2_bs),
+      op(y2, y2_ls, y2_bs), mask(i2, i2_bs), mask(n1, n1_bs), mask(n2, n2_bs),
+      (const uint32_t*)inv, (uint32_t*)xo, (uint32_t*)yo, (uint8_t*)io, n,
       make_params(p_words, inv32), make_words(a_words), has_a);
   return (int)cudaGetLastError();
 }

@@ -13,16 +13,19 @@ Representations
 The group law is the reference's, lane for lane: the same EFD formulas
 (dbl-2009-l / dbl-2007-bl, add-2007-bl, madd-2007-bl) and the same order
 of exceptional-case selects, so every output is the reference's, bit for
-bit.  Where the base is a prime field and a = 0 (BLS12-381 G1) the three
-laws run as the CUDA kernels of ``ops/sw_kernels.py`` (a CPU tensor takes
-their plain versions); for a != 0 they are composed from field operations.
-Loops the reference runs as ``lax.scan`` are Python loops over launches.
+bit.  Where the base is a prime field and a = 0 (BLS12-381 G1, secp256k1)
+the three laws run as the CUDA kernels of ``ops/sw_kernels.py`` (a CPU
+tensor takes their plain versions); for a != 0 they are composed from field
+operations.  The batched affine addition (``affine_add``) runs as kernels
+for any a.  Loops the reference runs as ``lax.scan`` are Python loops over
+launches.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..bigint import int_to_limbs
 from ..fields.host import HostPrime
 from ..fields.prime import PrimeField
 from ..ops import sw_kernels
@@ -41,7 +44,7 @@ class SWCurve:
     """y^2 = x^3 + a*x + b over a prime field kind."""
 
     def __init__(self, base: PrimeField, a_host: int, b_host: int, generator_host,
-                 cofactor: int, scalar_modulus: int, name: str = "SW"):
+                 cofactor: int, scalar_modulus: int, name: str = "SW", glv=None):
         if not isinstance(base, PrimeField):
             raise TypeError(f"the port's curves take a prime base field, not {base}")
         self.base = base
@@ -53,7 +56,8 @@ class SWCurve:
         self.scalar_modulus = int(scalar_modulus)
         self.cofactor_inv = pow(self.cofactor, -1, self.scalar_modulus)
         self.a_is_zero = self.a_host % base.spec.modulus == 0
-        self.glv = None  # GLV scalar multiplication is not ported yet
+        # GLV parameters (``ops/glv.py``): {"beta", "lam", "basis"}, or None
+        self.glv = glv
         # optional fast subgroup checks installed by curve instances:
         #   host fn: (curve, host_pt) -> bool      (host_pt never None)
         #   device fn: (curve, projective batch) -> bool tensor
@@ -198,6 +202,25 @@ class SWCurve:
     def sub(self, P, Q):
         return self.add(P, self.neg(Q))
 
+    def affine_add(self, P, Q, inv_fn, neg1=None, neg2=None):
+        """Batched affine P + Q -> (x3, y3, inf3) by the chord/tangent law,
+        every exceptional case selected as the reference does: P or Q at
+        infinity -> the other; x1 = x2, y1 = y2 != 0 -> the tangent;
+        x1 = x2 otherwise -> infinity.  ``inv_fn`` inverts the [L, *batch]
+        batch of slope denominators (zero to zero), e.g.
+        ``self.base.batch_inverse``: about three products a lane, so an
+        affine sum costs ~7 products against ~19 for the Jacobian mixed add.
+        ``neg1``/``neg2``: optional bool masks negating the y of the
+        corresponding operand first.  Kernels K9, K10 around ``inv_fn``
+        (``sw_kernels.affine_add``), whatever the batch shape."""
+        a_mont = None
+        if not self.a_is_zero:
+            spec = self.base.spec
+            a_mont = tuple(int(v) for v in int_to_limbs(
+                self.a_host * spec.R % spec.modulus, spec.n_limbs))
+        return sw_kernels.affine_add(self.base.spec, a_mont, P, Q, inv_fn,
+                                     neg1=neg1, neg2=neg2)
+
     # ------------------------------------------------------- representation
     def from_affine(self, aff):
         """(x, y, inf) -> Jacobian; infinity maps to (1, 1, 0)."""
@@ -235,11 +258,20 @@ class SWCurve:
         return inf | B.equal(B.square(y), rhs)
 
     # ----------------------------------------------------------- scalar mul
-    def scalar_mul(self, P, scalars: torch.Tensor):
+    def scalar_mul(self, P, scalars: torch.Tensor, use_glv: bool | None = None):
         """P * scalar for per-lane scalars (int32 [Ls, *batch] canonical
         16-bit limbs): MSB-first double-and-add over all 16*Ls bits, the
-        reference's ``lax.scan`` as a loop.  No GLV split: the curves ported
-        so far have none."""
+        reference's ``lax.scan`` as a loop.  A curve with GLV parameters
+        takes the endomorphism split (``ops/glv.glv_mul``: about half the
+        steps) when the scalars cover the scalar field's width, unless
+        ``use_glv`` says otherwise."""
+        if use_glv is None:
+            use_glv = (self.glv is not None
+                       and 16 * scalars.shape[0] >= self.scalar_modulus.bit_length())
+        if use_glv and self.glv is not None:
+            from ..ops import glv
+
+            return glv.glv_mul(self, P, scalars)
         bits = scalar_bits_le(scalars)
         acc = self.zero(self.batch_shape(P))
         for i in range(bits.shape[0] - 1, -1, -1):

@@ -1,4 +1,6 @@
-"""The port's entry points: polynomial product, exact quotient, G1 MSM.
+"""The port's entry points: polynomial product, exact quotient, G1 MSM,
+batched affine point addition, scalar multiplication (GLV on secp256k1,
+double-and-add on Jubjub) and fixed-base multiplication.
 
 ``poly_product`` is the counterpart of the JAX package's flagship step
 (BLS12-381 Fr: fft, fft, pointwise multiply, inverse fft, scale by 1/n) —
@@ -17,8 +19,8 @@ from __future__ import annotations
 import torch
 
 from . import config, convert
-from .curves.instances import bls12_381
-from .ops import msm
+from .curves.instances import bls12_381, ed_on_bls12_381, secp256k1
+from .ops import fixed_base, msm
 from .poly.dense import DensePolynomial
 from .poly.domain import Radix2EvaluationDomain
 from .poly.evaluations import Evaluations
@@ -78,6 +80,73 @@ def g1_msm(bases, scalars, device=None):
     curve = bls12_381.g1(device)
     return msm.msm(curve, convert.points_from_reference(bases, device),
                    _as_tensor(scalars, device))
+
+
+_SW_CURVES = {"secp256k1": secp256k1.g1, "bls12_381_g1": bls12_381.g1}
+
+
+def _sw_curve(curve: str, device: torch.device, caller: str):
+    if curve not in _SW_CURVES:
+        raise ValueError(f"{caller}: curve must be one of {sorted(_SW_CURVES)}, not {curve!r}")
+    return _SW_CURVES[curve](device)
+
+
+def batch_affine_add(P, Q, curve: str = "secp256k1", neg1=None, neg2=None, device=None):
+    """P + Q lane by lane for batches of affine points, by the chord/tangent
+    law with every exceptional case (``SWCurve.affine_add``: kernel K9, the
+    blocked batched inversion K2-K4, kernel K10).
+
+    P, Q: affine triples (x, y, inf) in the reference's format: x, y uint32
+    [L, *batch] Montgomery-form limbs (L = 16 for secp256k1, 24 for
+    BLS12-381 G1), inf bool [*batch]; numpy arrays or tensors.  neg1, neg2:
+    optional bool [*batch] masks that negate the y of P, Q first.  Returns
+    (x3, y3, inf3): int32 [L, *batch] twice and bool [*batch] on
+    ``device``.  Same device rule as ``poly_product``.
+    """
+    device = _device_for(device, "batch_affine_add")
+    c = _sw_curve(curve, device, "batch_affine_add")
+    P = convert.points_from_reference(P, device)
+    Q = convert.points_from_reference(Q, device)
+    neg1, neg2 = (None if m is None else torch.as_tensor(m, device=device)
+                  for m in (neg1, neg2))
+    return c.affine_add(P, Q, c.base.batch_inverse, neg1=neg1, neg2=neg2)
+
+
+def scalar_mul(bases, scalars, curve: str = "secp256k1", device=None):
+    """scalars[i] * bases[i] lane by lane.
+
+    secp256k1: bases an affine triple (x, y, inf) as for
+    ``batch_affine_add``; full-width scalars take the GLV split
+    (``ops/glv.glv_mul``).  ed_on_bls12_381 (Jubjub): bases an affine pair
+    (x, y) of uint32 [16, *batch] Montgomery-form limbs; double-and-add.
+    scalars: uint32 [Ls, *batch] canonical limbs, each below the curve's
+    scalar modulus (GLV takes Ls = 16, the full width).  Returns the
+    projective points (Jacobian (x, y, z) or extended (x, y, t, z)), int32
+    [L, *batch] each, on ``device``.  Same device rule as ``poly_product``.
+    """
+    device = _device_for(device, "scalar_mul")
+    if curve == "ed_on_bls12_381":
+        c = ed_on_bls12_381.curve(device)
+    else:
+        c = _sw_curve(curve, device, "scalar_mul")
+    P = c.from_affine(convert.points_from_reference(bases, device))
+    return c.scalar_mul(P, _as_tensor(scalars, device))
+
+
+def fixed_base_msm(scalars, c: int, curve: str = "secp256k1", device=None):
+    """scalars[i] * G for the curve's generator G: the window table of G
+    for c-bit windows (``ops/fixed_base.window_table``), then one gather and
+    one addition a window over the batch (``fixed_base.msm``).
+
+    scalars: uint32 [Ls, n] canonical limbs.  Returns the Jacobian points
+    [n], int32 [L, n] each, on ``device``.  Same device rule as
+    ``poly_product``.
+    """
+    device = _device_for(device, "fixed_base_msm")
+    g = _sw_curve(curve, device, "fixed_base_msm")
+    sc = _as_tensor(scalars, device)
+    table = fixed_base.window_table(g, g.generator(), c, 16 * sc.shape[0])
+    return fixed_base.msm(g, table, sc, c)
 
 
 def _device_for(device, caller: str) -> torch.device:

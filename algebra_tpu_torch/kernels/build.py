@@ -116,6 +116,9 @@ def _signatures() -> dict[str, dict[str, list]]:
     ``<prefix>_words()``, which returns the word count it was built for."""
     vp, sz, ci, u32 = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_uint32
     words_p = ctypes.POINTER(ctypes.c_uint32)
+    # K9/K10's operands: x1, y1, inf1, x2, y2, inf2, neg1, neg2 (a coordinate
+    # as pointer, limb stride, lane stride; a mask as pointer, lane stride)
+    aff_in = [vp, sz, sz] * 2 + [vp, sz] + [vp, sz, sz] * 2 + [vp, sz] * 3
     return {
         "mont_kernels": {
             "mont_words": [],
@@ -140,6 +143,8 @@ def _signatures() -> dict[str, dict[str, list]]:
                                                    words_p, vp],
             "affr_denom_launch": [vp, vp, vp, sz, words_p, u32, words_p, vp],
             "affr_post_launch": [vp, vp, vp, vp, sz, words_p, u32, words_p, ci, vp],
+            "aff_denom_launch": aff_in + [vp, sz, words_p, u32, words_p, vp],
+            "aff_post_launch": aff_in + [vp, vp, vp, vp, sz, words_p, u32, words_p, ci, vp],
         },
         "rows_kernels": {
             "rows_words": [],

@@ -36,8 +36,9 @@ units (K16) and halves them ks times with the affine chord/tangent law
 with extra one-level stages while they are cheaper than lockstep rounds
 (``_extra_stages``); the few slots left finish in capped lockstep rounds
 of K8 over unpacked rows (K14) and a compacted drain.  The tree needs a
-prime base field: over any other it would need ``SWCurve.affine_add``
-(kernels K9/K10), which is not ported, and ``msm`` raises.  The result is
+prime base field: over any other it would need the reference's composed
+level (unpack, the tower body of ``SWCurve.affine_add``, pack), which is
+not ported (the port has no towers yet), and ``msm`` raises.  The result is
 the same point as the lockstep path's, reached by another order of
 additions, so the two compare in affine.
 
@@ -312,8 +313,8 @@ def msm(curve, bases_aff, scalars: torch.Tensor, c: int | None = None,
     if tree and level_fn is None:
         raise NotImplementedError(
             "the MSM's affine tree over a base field that is not prime needs "
-            "SWCurve.affine_add (kernels K9/K10), which is not ported yet; "
-            "set config.msm_affine_tree = False")
+            "the composed level (unpack, SWCurve.affine_add over a tower, pack), "
+            "which is not ported yet; set config.msm_affine_tree = False")
     if scalar_bits is None:
         scalar_bits = min(16 * scalars.shape[0], curve.scalar_modulus.bit_length())
     if c is None:
@@ -421,7 +422,7 @@ def _batched_inv_fn(base):
 def _rows_level_fn(curve):
     """One halving level on packed rows (``sw_kernels.affine_add_rows``) for
     a prime base field; None otherwise (the reference composes unpack,
-    ``SWCurve.affine_add``, pack there: kernels K9/K10, not ported)."""
+    ``SWCurve.affine_add`` over the tower, pack there: not ported)."""
     B = curve.base
     if not isinstance(B, PrimeField):
         return None

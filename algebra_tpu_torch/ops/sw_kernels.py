@@ -1,8 +1,7 @@
 """The CUDA group-law kernels: wrappers, plain versions.
 
-Counterpart of the JAX package's ``ops/sw_pallas.py`` but its affine add on
-coordinate arrays (K9, K10: no path of the port runs it yet).  Three
-kernels, CUDA C++ over the device functions of ``csrc/sw.cuh``
+Counterpart of the JAX package's ``ops/sw_pallas.py``.  Three kernels,
+CUDA C++ over the device functions of ``csrc/sw.cuh``
 (``csrc/sw_kernels.cu``), for short-Weierstrass curves with a = 0 over a
 prime field:
 
@@ -20,21 +19,25 @@ prime field:
     squarings and 7 products for the generic sum; the same selects, and
     P = inf gives from_affine(Q).
 
-Two more kernels run one halving level of the MSM's affine tree on packed
-rows (``ops/rows.py``), around the batched inversion (wrapper
-``affine_add_rows``; a prime field, any a):
+Four more add affine points by the chord/tangent law around a batched
+inversion (a prime field, any a), two on coordinate arrays (wrapper
+``affine_add``, behind ``SWCurve.affine_add``) and two on the packed rows of
+the MSM's affine tree (``ops/rows.py``; wrapper ``affine_add_rows``):
 
-``affr_denom``  (K11)
-    Replaces ``_affr_denom_kernel`` (``sw_pallas.py:373``, wrapper
-    ``affine_add_rows`` :477): the slope's denominator of each pair of rows,
-    limb-major [L, m]: 2 y1 for a tangent, x2 - x1 for a chord, one for a
-    degenerate lane (an infinity or opposite points).
-``affr_post``  (K12)
-    Replaces ``_affr_post_kernel`` (``sw_pallas.py:391``): lambda, x3, y3 and
-    the infinity flag from the inverses, written as rows.  An infinity lane
-    copies where the reference selects; an opposite-points lane computes
-    with the inverse of one, as the reference does, so even its flagged
-    coordinates are the reference's.
+``aff_denom``  (K9), ``affr_denom``  (K11)
+    Replace ``_aff_denom_kernel`` (``sw_pallas.py:199``, wrapper
+    ``affine_add`` :304) and ``_affr_denom_kernel`` (:373, wrapper
+    ``affine_add_rows`` :477): the slope's denominator of each pair,
+    limb-major [L, ...]: 2 y1 for a tangent, x2 - x1 for a chord, one for a
+    degenerate lane (an infinity or opposite points).  K9 first negates y1,
+    y2 where the optional masks ``neg1``/``neg2`` say (0 stays 0).
+``aff_post``  (K10), ``affr_post``  (K12)
+    Replace ``_aff_post_kernel`` (``sw_pallas.py:216``) and
+    ``_affr_post_kernel`` (:391): lambda, x3, y3 and the infinity flag from
+    the inverses, as coordinate arrays and a mask (K10) or as rows (K12).
+    An infinity lane copies where the reference selects; an opposite-points
+    lane computes with the inverse of one, as the reference does, so even
+    its flagged coordinates are the reference's.
 
 A lane branches where the TPU selects: an infinity lane copies, a P = Q
 lane computes the doubling instead of the rest of the sum; the results are
@@ -52,7 +55,8 @@ kernels' plain versions (``mont_kernels.mul_plain``, ``add_plain``,
 ``sub_plain``) in the kernels' formulas and select like the reference,
 and run on any device.  Launch counts are kept in ``mont_kernels.launches``
 beside the field kernels' (``jac_double``, ``jac_add``, ``jac_madd``,
-``affr_denom``, ``affr_post``), so one ``reset_launches()`` clears them all.
+``aff_denom``, ``aff_post``, ``affr_denom``, ``affr_post``), so one
+``reset_launches()`` clears them all.
 """
 
 from __future__ import annotations
@@ -250,18 +254,40 @@ def store(res, out):
     return tuple(out)
 
 
-def _launch(name: str, spec: FieldSpec, device, *args, one: bool = False) -> None:
+def _launch(name: str, spec: FieldSpec, device, *args, extra=()) -> None:
+    """Launch ``name``: its operands, then the field's modulus and inv32,
+    then ``extra`` constants, then the stream."""
     from ..kernels import build
 
     lib = build.library("sw_kernels", spec.n_words)
-    tail = (mk._p_words_arg(spec), spec.inv32)
-    if one:
-        tail += (mk._one_words_arg(spec),)
     with torch.cuda.device(device):
         code = getattr(lib, f"{name}_launch")(
-            *args, *tail, torch.cuda.current_stream().cuda_stream)
+            *args, mk._p_words_arg(spec), spec.inv32, *extra,
+            torch.cuda.current_stream().cuda_stream)
     launches[name] += 1
     mk._raise_on_error(code, name)
+
+
+def _check_mask(name: str, m, device) -> None:
+    if m is not None and (m.dtype != torch.bool or m.device != device):
+        raise ValueError(f"{name} must be a bool mask on {device}")
+
+
+def _mask_operand(m, batch: tuple):
+    """(tensor or None, lane stride) of an optional bool batch mask
+    broadcast to ``batch``: a view where the strides allow it."""
+    if m is None:
+        return None, 0
+    mb = m.expand(batch)
+    bs = _lane_stride(mb[None])
+    if bs is None:
+        mb, bs = mb.contiguous(), 1
+    return mb, bs
+
+
+def _ptr(t):
+    """A tensor's device pointer, or null for None."""
+    return t.data_ptr() if t is not None else None
 
 
 def _flat_args(operands) -> list:
@@ -312,8 +338,7 @@ def madd(spec: FieldSpec, P, aff, out=None):
     the MSM's bucket rounds pass P's own arrays and accumulate in place."""
     x2, y2, inf = aff
     device = mk._check_elems(spec, *P, x2, y2)
-    if inf.dtype != torch.bool or inf.device != device:
-        raise ValueError(f"inf must be a bool mask on {device}")
+    _check_mask("inf", inf, device)
     batch = _batch((*P, x2, y2), (inf,))
     if device.type == "cpu":
         coords = [_expand(c, batch) for c in (*P, x2, y2)]
@@ -322,28 +347,16 @@ def madd(spec: FieldSpec, P, aff, out=None):
     n = math.prod(batch)
     if n:
         ops = [_operand(c, batch) for c in (*P, x2, y2)]
-        inf_b = inf.expand(batch)
-        inf_bs = _lane_stride(inf_b[None])
-        if inf_bs is None:
-            inf_b, inf_bs = inf_b.contiguous(), 1
+        inf_b, inf_bs = _mask_operand(inf, batch)
         _launch("jac_madd", spec, device, *_flat_args(ops), inf_b.data_ptr(), inf_bs,
-                *(o.data_ptr() for o in outs), n, one=True)
+                *(o.data_ptr() for o in outs), n, extra=(mk._one_words_arg(spec),))
     return outs
 
 
 # --------------------------------------------------------------------------
-# one halving level of the MSM's affine tree, on packed rows (K11, K12)
+# the affine chord/tangent addition: on coordinate arrays (K9, K10) and on
+# one halving level of the MSM's affine tree, packed rows (K11, K12)
 # --------------------------------------------------------------------------
-
-
-def _row_pairs(spec: FieldSpec, V: torch.Tensor, valid):
-    """V [2m, RW] -> ((x1, y1, i1), (x2, y2, i2)), the even and the odd rows
-    as [L, m] coordinates and bool [m] flags; an invalid row is infinity."""
-    x1, y1, i1 = rows.unpack_plain(spec, V[0::2])
-    x2, y2, i2 = rows.unpack_plain(spec, V[1::2])
-    if valid is not None:
-        i1, i2 = i1 | ~valid[0::2], i2 | ~valid[1::2]
-    return (x1, y1, i1), (x2, y2, i2)
 
 
 def _aff_cases(spec: FieldSpec, x1, y1, i1, x2, y2, i2):
@@ -355,28 +368,36 @@ def _aff_cases(spec: FieldSpec, x1, y1, i1, x2, y2, i2):
     return d, dbl, opp, i1 | i2 | opp
 
 
-def affr_denom_plain(spec: FieldSpec, V: torch.Tensor, valid=None) -> torch.Tensor:
-    """The slope denominators [L, m] of the pairs of V: 2 y1 (tangent),
-    x2 - x1 (chord), one (a degenerate lane)."""
-    (x1, y1, i1), (x2, y2, i2) = _row_pairs(spec, V, valid)
+def _aff_neg(spec: FieldSpec, y, neg):
+    """y -> 0 - y where ``neg`` (0 stays 0), the reference's ``_aff_neg``."""
+    if neg is None:
+        return y
+    return _sel(neg, _sub(spec, torch.zeros_like(y), y), y)
+
+
+def aff_denom_plain(spec: FieldSpec, x1, y1, i1, x2, y2, i2, neg1=None, neg2=None):
+    """The slope denominators [L, *batch] of P + Q, y1/y2 negated first
+    where ``neg1``/``neg2`` say: 2 y1 (tangent), x2 - x1 (chord), one (a
+    degenerate lane).  Operands of one batch shape."""
+    y1, y2 = _aff_neg(spec, y1, neg1), _aff_neg(spec, y2, neg2)
     d, dbl, _, degen = _aff_cases(spec, x1, y1, i1, x2, y2, i2)
     den = _sel(dbl, _dbl(spec, y1), d)
-    return _sel(degen, _one(spec, den), den).contiguous()
+    return _sel(degen, _one(spec, den), den)
 
 
-def affr_post_plain(spec: FieldSpec, a_mont, V: torch.Tensor, valid,
-                    inv: torch.Tensor) -> torch.Tensor:
-    """The level's result rows [m, RW] from the inverted denominators, with
+def aff_post_plain(spec: FieldSpec, a_mont, x1, y1, i1, x2, y2, i2, inv,
+                   neg1=None, neg2=None):
+    """(x3, y3, inf3) of P + Q from the inverted denominators ``inv``, with
     the reference's selects: computed in every lane, then
     x3 = i1 ? x2 : (i2 ? x1 : x3) (y3 alike),
     inf3 = (i1 and i2) or (not i1 and not i2 and opp)."""
-    (x1, y1, i1), (x2, y2, i2) = _row_pairs(spec, V, valid)
+    y1, y2 = _aff_neg(spec, y1, neg1), _aff_neg(spec, y2, neg2)
     _, dbl, opp, _ = _aff_cases(spec, x1, y1, i1, x2, y2, i2)
     x1sq = _sq(spec, x1)
     three = _add(spec, _dbl(spec, x1sq), x1sq)
     if a_mont is not None:
         a = torch.tensor(list(a_mont), dtype=three.dtype, device=three.device)
-        three = _add(spec, three, a.reshape(-1, 1))
+        three = _add(spec, three, a.reshape((-1,) + (1,) * (three.ndim - 1)))
     num = _sel(dbl, three, _sub(spec, y2, y1))
     lam = _mul(spec, num, inv)
     x3 = _sub(spec, _sub(spec, _sq(spec, lam), x1), x2)
@@ -384,7 +405,138 @@ def affr_post_plain(spec: FieldSpec, a_mont, V: torch.Tensor, valid,
     x3 = _sel(i1, x2, _sel(i2, x1, x3))
     y3 = _sel(i1, y2, _sel(i2, y1, y3))
     inf3 = (i1 & i2) | (~i1 & ~i2 & opp)
-    return rows.pack_plain(spec, x3, y3, inf3)
+    return x3, y3, inf3
+
+
+def _row_pairs(spec: FieldSpec, V: torch.Tensor, valid):
+    """V [2m, RW] -> (x1, y1, i1, x2, y2, i2), the even and the odd rows
+    as [L, m] coordinates and bool [m] flags; an invalid row is infinity."""
+    x1, y1, i1 = rows.unpack_plain(spec, V[0::2])
+    x2, y2, i2 = rows.unpack_plain(spec, V[1::2])
+    if valid is not None:
+        i1, i2 = i1 | ~valid[0::2], i2 | ~valid[1::2]
+    return x1, y1, i1, x2, y2, i2
+
+
+def affr_denom_plain(spec: FieldSpec, V: torch.Tensor, valid=None) -> torch.Tensor:
+    """The slope denominators [L, m] of the pairs of V, as ``aff_denom``."""
+    return aff_denom_plain(spec, *_row_pairs(spec, V, valid)).contiguous()
+
+
+def affr_post_plain(spec: FieldSpec, a_mont, V: torch.Tensor, valid,
+                    inv: torch.Tensor) -> torch.Tensor:
+    """The level's result rows [m, RW] from the inverted denominators, as
+    ``aff_post``."""
+    return rows.pack_plain(spec, *aff_post_plain(spec, a_mont, *_row_pairs(spec, V, valid),
+                                                 inv))
+
+
+@functools.lru_cache(maxsize=None)
+def _words_arg(limbs: tuple):
+    """16-bit limbs -> the C array of their 32-bit words."""
+    return (ctypes.c_uint32 * (len(limbs) // 2))(
+        *[limbs[2 * k] | (limbs[2 * k + 1] << 16) for k in range(len(limbs) // 2)])
+
+
+def _a_args(spec: FieldSpec, a_mont) -> tuple:
+    """The curve's a (Montgomery-form 16-bit limbs, or None for a = 0) as
+    the kernels' (words, has_a)."""
+    return (_words_arg(tuple(a_mont) if a_mont is not None else (0,) * spec.n_limbs),
+            int(a_mont is not None))
+
+
+def _aff_check(spec: FieldSpec, P, Q, neg1, neg2):
+    """(device, batch shape) of K9/K10's operands."""
+    (x1, y1, i1), (x2, y2, i2) = P, Q
+    device = mk._check_elems(spec, x1, y1, x2, y2)
+    masks = {"inf1": i1, "inf2": i2, "neg1": neg1, "neg2": neg2}
+    for name, m in masks.items():
+        _check_mask(name, m, device)
+    batch = _batch((x1, y1, x2, y2), [m for m in masks.values() if m is not None])
+    return device, batch
+
+
+def _aff_expanded(P, Q, neg1, neg2, batch: tuple) -> list:
+    """The plain versions' operands, all of shape ``batch``."""
+    (x1, y1, i1), (x2, y2, i2) = P, Q
+    coords = [_expand(c, batch) for c in (x1, y1)] + [i1.expand(batch)]
+    coords += [_expand(c, batch) for c in (x2, y2)] + [i2.expand(batch)]
+    return coords + [None if m is None else m.expand(batch) for m in (neg1, neg2)]
+
+
+def _aff_args(P, Q, neg1, neg2, batch: tuple) -> tuple:
+    """(K9/K10's operand arguments, the tensors they point into): the
+    coordinates as (pointer, limb stride, lane stride), the masks as
+    (pointer, lane stride), a missing mask null.  The caller holds the
+    tensors until the launch is queued: a copy freed before it would give
+    its block to the next copy, which overwrites it first."""
+    (x1, y1, i1), (x2, y2, i2) = P, Q
+    args, held = [], []
+    for x, y, i in ((x1, y1, i1), (x2, y2, i2)):
+        ops = [_operand(x, batch), _operand(y, batch)]
+        m, bs = _mask_operand(i, batch)
+        args += _flat_args(ops) + [m.data_ptr(), bs]
+        held += [t for t, _, _ in ops] + [m]
+    for neg in (neg1, neg2):
+        m, bs = _mask_operand(neg, batch)
+        args += [_ptr(m), bs]
+        held.append(m)
+    return args, held
+
+
+def aff_denom(spec: FieldSpec, P, Q, neg1=None, neg2=None) -> torch.Tensor:
+    """K9: the slope denominators [L, *batch] of the affine sums P + Q.
+    P, Q: (x, y, inf), coordinates int32 [L, ...] and bool inf masks, batch
+    shapes broadcast; ``neg1``/``neg2``: optional bool masks that negate
+    y1/y2 first."""
+    device, batch = _aff_check(spec, P, Q, neg1, neg2)
+    if device.type == "cpu":
+        return aff_denom_plain(spec, *_aff_expanded(P, Q, neg1, neg2, batch))
+    den = torch.empty((spec.n_limbs,) + batch, dtype=torch.int32, device=device)
+    n = math.prod(batch)
+    if n:
+        args, held = _aff_args(P, Q, neg1, neg2, batch)
+        _launch("aff_denom", spec, device, *args, den.data_ptr(), n,
+                extra=(mk._one_words_arg(spec),))
+        del held
+    return den
+
+
+def aff_post(spec: FieldSpec, a_mont, P, Q, inv: torch.Tensor, neg1=None, neg2=None):
+    """K10: (x3, y3, inf3) of the affine sums P + Q, given the inverses
+    ``inv`` [L, *batch] of ``aff_denom``'s denominators (the same operands).
+    ``a_mont``: the curve's a as Montgomery-form 16-bit limbs, or None for
+    a = 0."""
+    device, batch = _aff_check(spec, P, Q, neg1, neg2)
+    mk._check_elems(spec, inv)
+    L = spec.n_limbs
+    if tuple(inv.shape) != (L,) + batch or inv.device != device:
+        raise ValueError(f"inv must be [{L}, {', '.join(map(str, batch))}] on {device}")
+    if device.type == "cpu":
+        ops = _aff_expanded(P, Q, neg1, neg2, batch)
+        return aff_post_plain(spec, a_mont, *ops[:6], inv, *ops[6:])
+    xo = torch.empty((L,) + batch, dtype=torch.int32, device=device)
+    yo = torch.empty_like(xo)
+    io = torch.empty(batch, dtype=torch.bool, device=device)
+    n = math.prod(batch)
+    if n:
+        args, held = _aff_args(P, Q, neg1, neg2, batch)
+        inv = inv.contiguous()
+        _launch("aff_post", spec, device, *args, inv.data_ptr(), xo.data_ptr(),
+                yo.data_ptr(), io.data_ptr(), n, extra=_a_args(spec, a_mont))
+        del held
+    return xo, yo, io
+
+
+def affine_add(spec: FieldSpec, a_mont, P, Q, inv_fn, neg1=None, neg2=None):
+    """Batched affine P + Q -> (x3, y3, inf3) by the chord/tangent law with
+    every exceptional case: K9, ``inv_fn`` on the [L, *batch] denominators
+    (``mont.batch_inverse``: zero to zero), K10.  Bit for bit the
+    reference's ``sw_pallas.affine_add``, whose ``inv_fn`` sees the batch
+    padded to a block with lanes whose denominator is one; here it sees
+    the batch alone."""
+    den = aff_denom(spec, P, Q, neg1, neg2)
+    return aff_post(spec, a_mont, P, Q, inv_fn(den), neg1, neg2)
 
 
 def _check_level(spec: FieldSpec, V: torch.Tensor, valid) -> torch.device:
@@ -394,13 +546,6 @@ def _check_level(spec: FieldSpec, V: torch.Tensor, valid) -> torch.device:
     if valid is not None:
         rows._check_mask("valid", valid, V.shape[0], device)
     return device
-
-
-@functools.lru_cache(maxsize=None)
-def _words_arg(limbs: tuple):
-    """16-bit limbs -> the C array of their 32-bit words."""
-    return (ctypes.c_uint32 * (len(limbs) // 2))(
-        *[limbs[2 * k] | (limbs[2 * k + 1] << 16) for k in range(len(limbs) // 2)])
 
 
 def affr_denom(spec: FieldSpec, V: torch.Tensor, valid=None) -> torch.Tensor:
@@ -413,17 +558,10 @@ def affr_denom(spec: FieldSpec, V: torch.Tensor, valid=None) -> torch.Tensor:
     m = V.shape[0] // 2
     den = torch.empty((spec.n_limbs, m), dtype=torch.int32, device=device)
     if m:
-        from ..kernels import build
-
-        V = V.contiguous()
-        vptr = valid.contiguous().data_ptr() if valid is not None else None
-        lib = build.library("sw_kernels", spec.n_words)
-        with torch.cuda.device(device):
-            code = lib.affr_denom_launch(
-                V.data_ptr(), vptr, den.data_ptr(), m, mk._p_words_arg(spec), spec.inv32,
-                mk._one_words_arg(spec), torch.cuda.current_stream().cuda_stream)
-        launches["affr_denom"] += 1
-        mk._raise_on_error(code, "affr_denom")
+        V = V.contiguous()  # held until the launch is queued, as each copy here
+        valid = valid.contiguous() if valid is not None else None
+        _launch("affr_denom", spec, device, V.data_ptr(), _ptr(valid), den.data_ptr(), m,
+                extra=(mk._one_words_arg(spec),))
     return den
 
 
@@ -441,19 +579,10 @@ def affr_post(spec: FieldSpec, a_mont, V: torch.Tensor, valid,
         return affr_post_plain(spec, a_mont, V, valid, inv)
     out = torch.empty((m, V.shape[1]), dtype=torch.int32, device=device)
     if m:
-        from ..kernels import build
-
         V, inv = V.contiguous(), inv.contiguous()
-        vptr = valid.contiguous().data_ptr() if valid is not None else None
-        a_words = _words_arg(tuple(a_mont) if a_mont is not None else (0,) * spec.n_limbs)
-        lib = build.library("sw_kernels", spec.n_words)
-        with torch.cuda.device(device):
-            code = lib.affr_post_launch(
-                V.data_ptr(), vptr, inv.data_ptr(), out.data_ptr(), m,
-                mk._p_words_arg(spec), spec.inv32, a_words, int(a_mont is not None),
-                torch.cuda.current_stream().cuda_stream)
-        launches["affr_post"] += 1
-        mk._raise_on_error(code, "affr_post")
+        valid = valid.contiguous() if valid is not None else None
+        _launch("affr_post", spec, device, V.data_ptr(), _ptr(valid), inv.data_ptr(),
+                out.data_ptr(), m, extra=_a_args(spec, a_mont))
     return out
 
 

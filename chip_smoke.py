@@ -23,11 +23,17 @@ by step and under ``torch.profiler`` at 2^20, (9) the group law's other
 paths (scalar multiplication, cofactor clearing, subgroup checks, the small
 MSM), (10) holds the affine tree's kernels (row pack, unpack, y negation,
 unit expansion; the halving level's denominator and completion) against
-their plain versions, and (11) runs the G1 MSM through the affine tree at
+their plain versions, (11) runs the G1 MSM through the affine tree at
 the sizes of (8) against the host oracle, both bucket paths in turns at
-2^20, and the tree's kernels at the shapes of the 2^20 MSM.  Phases 7-8
-run the lockstep bucket path and 11 the tree, whatever
-``config.msm_affine_tree`` says.  Every comparison is bit-exact (tolerance
+2^20, and the tree's kernels at the shapes of the 2^20 MSM, (12) holds the
+affine addition's kernels on coordinate arrays (denominator, completion)
+against their plain versions and real secp256k1 and G1 pairs against the
+host, and (13) runs BASELINE configs[2]: ``entry.batch_affine_add`` on 2^20
+secp256k1 and 2^20 G1 pairs, ``entry.scalar_mul`` by GLV on 2^18
+secp256k1 points against plain double-and-add, wNAF, ``entry.fixed_base_msm``
+on 2^20 scalars and ``entry.scalar_mul`` on 2^16 Jubjub points, each
+against the host.  Phases 7-8 run the lockstep bucket path and 11 the tree,
+whatever ``config.msm_affine_tree`` says.  Every comparison is bit-exact (tolerance
 0: outputs are canonical integers).  One JSON object per line; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -122,6 +128,46 @@ def wall_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def median_ms(fn, reps: int = 3):
+    """(median milliseconds, all times) of ``reps`` synchronised calls of
+    ``fn`` on the host clock (warm it first)."""
+    times = [wall_ms(fn)[1] for _ in range(reps)]
+    return float(np.median(times)), times
+
+
+def profile_call(fn, families, top: int = 16) -> dict:
+    """One synchronised call of ``fn`` under torch.profiler, after one warm
+    call the profiler traces and drops (without it the first kernels of a
+    short call go unrecorded): its wall time, the device time of its
+    kernels (device events only: a CPU op's row repeats its kernels' time),
+    the share of the wall time the device was busy, the ``top`` kernels by
+    device time, and the device time of each kernel family by whole name
+    (``pack_kernel`` is in ``unpack_kernel``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    steps = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=steps) as prof:
+        wall_ms(fn)
+        prof.step()
+        _, wall = wall_ms(fn)
+        prof.step()
+    by_kernel = {}
+    for e in prof.key_averages():  # the step's own row repeats its kernels' time
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0 \
+                and not e.key.startswith("ProfilerStep"):
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    busy_ms = sum(by_kernel.values())
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
+    return {
+        "wall_ms": wall,
+        "device_ms": busy_ms if by_kernel else "not measured",
+        "device_busy_share": busy_ms / wall if by_kernel else "not measured",
+        "device_ms_by_kernel": {k[:90]: v for k, v in ranked},
+        "kernel_device_ms": {
+            name: sum(v for k, v in by_kernel.items() if re.search(rf"\b{name}_kernel<", k))
+            for name in families},
+    }
 
 
 def random_limbs(spec, n: int, rng: np.random.Generator) -> np.ndarray:
@@ -1064,13 +1110,15 @@ def g1_bases_256(curve, rng_host):
     return pts, curve.from_host(pts)
 
 
-def random_scalars(n: int, rng: np.random.Generator) -> np.ndarray:
-    """uint32 [16, n] canonical limbs of full-width scalars below r: every
-    limb uniform but the top one, uniform below r's top limb."""
+def random_scalars(n: int, rng: np.random.Generator, modulus: int | None = None) -> np.ndarray:
+    """uint32 [16, n] canonical limbs of full-width scalars below a 256-bit
+    modulus (BLS12-381's r when None): every limb uniform but the top one,
+    uniform below the modulus's top limb."""
     from algebra_tpu_torch.curves.instances import bls12_381
 
+    modulus = bls12_381.R if modulus is None else modulus
     out = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
-    out[15] = rng.integers(0, bls12_381.R >> 240, size=n, dtype=np.uint32)
+    out[15] = rng.integers(0, modulus >> 240, size=n, dtype=np.uint32)
     return out
 
 
@@ -1168,24 +1216,9 @@ def msm_phase_times(curve, aff256, sc_np, device) -> dict:
     _, out["to_affine_ms"] = wall_ms(lambda: curve.to_affine(total))
     del order_s, start, counts, table, buckets, sums
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        _, wall = wall_ms(lambda: curve.to_affine(msm.msm(curve, (x, y, inf), sc)))
-    by_kernel = {}  # device events only: a CPU op's row repeats its kernels' time
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
-    busy_ms = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-    out["profiled"] = {
-        "wall_ms": wall,
-        "device_ms": busy_ms if by_kernel else "not measured",
-        "device_busy_share": busy_ms / wall if by_kernel else "not measured",
-        "device_ms_by_kernel": {k[:90]: v for k, v in top},
-        "group_law_device_ms": {
-            name: sum(v for k, v in by_kernel.items() if f"{name}_kernel" in k)
-            for name in ("jac_madd", "jac_add", "jac_double", "mont_mul")},
-    }
+    out["profiled"] = profile_call(
+        lambda: curve.to_affine(msm.msm(curve, (x, y, inf), sc)),
+        ("jac_madd", "jac_add", "jac_double", "mont_mul"), top=12)
     return out
 
 
@@ -1331,16 +1364,16 @@ def check_row_kernels(spec, rng, device):
             "ragged": cases}
 
 
-def level_operands(spec, m: int, rng: np.random.Generator, device):
-    """Rows V [2m, RW] of m pairs of random coordinates, planted: pair 0
-    P = inf, 1 Q = inf, 2 both, 3 P = Q (tangent), 4 P = -Q, 5 equal y
-    with x apart, 6 same x with y1 = y2 = 0 (opposite, not a tangent); a
-    whole warp each of tangents (64-95), opposite points (96-127), equal y
-    (128-159), P = inf (160-191); and a valid mask [2m], 1 in 5 invalid,
-    with a whole warp of invalid pairs (192-223).  The laws are polynomial
-    identities, so the coordinates need no curve."""
+def planted_pair_coords(spec, m: int, rng: np.random.Generator, device):
+    """m pairs of random affine coordinates (x1, y1, i1, x2, y2, i2), [L, m]
+    and bool [m], planted: pair 0 P = inf, 1 Q = inf, 2 both, 3 P = Q
+    (tangent), 4 P = -Q, 5 equal y with x apart, 6 same x with
+    y1 = y2 = 0 (opposite, not a tangent); a whole warp each of tangents
+    (64-95), opposite points (96-127), equal y (128-159), P = inf
+    (160-191).  The laws are polynomial identities, so the coordinates need
+    no curve."""
     from algebra_tpu_torch import convert
-    from algebra_tpu_torch.ops import mont, rows
+    from algebra_tpu_torch.ops import mont
 
     x1, y1, x2, y2 = (convert.from_reference(random_limbs(spec, m, rng), device)
                       for _ in range(4))
@@ -1359,6 +1392,17 @@ def level_operands(spec, m: int, rng: np.random.Generator, device):
     y1 = torch.where(zero_y, 0, y1)
     y2 = torch.where(tangent | equal_y, y1,
                      torch.where(opposite, mont.neg(spec, y1), torch.where(zero_y, 0, y2)))
+    return x1, y1, i1, x2, y2, i2
+
+
+def level_operands(spec, m: int, rng: np.random.Generator, device):
+    """Rows V [2m, RW] of the m planted pairs of ``planted_pair_coords``,
+    and a valid mask [2m], 1 in 5 invalid, with a whole warp of invalid
+    pairs (192-223)."""
+    from algebra_tpu_torch.ops import rows
+
+    x1, y1, i1, x2, y2, i2 = planted_pair_coords(spec, m, rng, device)
+
     def pair(a, b):  # a's and b's lanes interleaved
         return torch.stack([a, b], dim=-1).reshape(a.shape[:-1] + (2 * m,))
 
@@ -1385,6 +1429,20 @@ def check_level_kernels(spec, rng, device, a_mont=None, sizes=(4099, 300)):
                                    swk.affr_post_plain(spec, a_mont, V, v, inv))
             cases.append({"pairs": m, "valid": v is not None, "affr_denom": k11[0],
                           "affr_post": k12[0], "max_abs_err": max(k11[1], k12[1])})
+    # V, valid and inv as views the wrappers copy: every other pair of a
+    # wider level, and inv transposed from [m, L]
+    m = sizes[0]
+    W2, valid2 = level_operands(spec, 2 * m, rng, device)
+    V = W2.reshape(m, 4, -1)[:, :2].reshape(2 * m, -1)
+    v = valid2.reshape(m, 4)[:, :2].reshape(-1)
+    Vc, vc = V.contiguous(), v.contiguous()
+    den = swk.affr_denom(spec, V, v)
+    k11 = tuple_mismatches(den, swk.affr_denom_plain(spec, Vc, vc))
+    inv = mk.batch_inverse(spec, den).t().contiguous().t()
+    k12 = tuple_mismatches(swk.affr_post(spec, a_mont, V, v, inv),
+                           swk.affr_post_plain(spec, a_mont, Vc, vc, inv.contiguous()))
+    cases.append({"pairs": m, "valid": True, "views": True, "affr_denom": k11[0],
+                  "affr_post": k12[0], "max_abs_err": max(k11[1], k12[1])})
     torch.cuda.synchronize()
     return {"field": spec.name, "words": spec.n_words, "a": a_mont is not None,
             "cases": cases}
@@ -1416,7 +1474,7 @@ def row_case_failures(cases) -> list:
     for case in cases:
         for c in case.get("ragged", case.get("cases", [])):
             counts = [v for k, v in c.items()
-                      if k not in ("n", "pairs", "valid", "max_abs_err")]
+                      if k not in ("n", "pairs", "valid", "views", "max_abs_err")]
             if any(counts):
                 bad.append(c)
     return bad
@@ -1535,7 +1593,7 @@ def check_tree_main_shapes(seen: dict) -> dict:
     want, plain_ms = wall_ms(lambda: swk.affr_post_plain(spec, a_mont, V, valid, inv))
     bad = tuple_mismatches(swk.affr_post(spec, a_mont, V, valid, inv), want)
     del want
-    (x1, y1, i1), (x2, y2, i2) = swk._row_pairs(spec, V, valid)
+    x1, y1, i1, x2, y2, i2 = swk._row_pairs(spec, V, valid)
     _, dbl, _, _ = swk._aff_cases(spec, x1, y1, i1, x2, y2, i2)
     live = ~(i1 | i2)
     n_live, n_dbl = int(live.sum().item()), int((live & dbl).sum().item())
@@ -1576,27 +1634,11 @@ def tree_phase_times(curve, aff256, sc_np, device) -> dict:
         _, out["to_affine_ms"] = wall_ms(lambda: curve.to_affine(total))
         del buckets, sums
 
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            _, wall = wall_ms(lambda: curve.to_affine(msm.msm(curve, (x, y, inf), sc)))
-    by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
-    busy_ms = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:16]
-    families = ("expand_units", "negate_y", "pack", "unpack", "affr_denom", "affr_post",
-                "inv_prefix", "inv_fermat", "inv_backward", "jac_madd", "jac_add",
-                "jac_double", "mont_mul")
-    out["profiled"] = {
-        "wall_ms": wall,
-        "device_ms": busy_ms if by_kernel else "not measured",
-        "device_busy_share": busy_ms / wall if by_kernel else "not measured",
-        "device_ms_by_kernel": {k[:90]: v for k, v in top},
-        "kernel_device_ms": {  # by whole name: pack_kernel is in unpack_kernel
-            name: sum(v for k, v in by_kernel.items() if re.search(rf"\b{name}_kernel<", k))
-            for name in families},
-    }
+        families = ("expand_units", "negate_y", "pack", "unpack", "affr_denom", "affr_post",
+                    "inv_prefix", "inv_fermat", "inv_backward", "jac_madd", "jac_add",
+                    "jac_double", "mont_mul")
+        out["profiled"] = profile_call(
+            lambda: curve.to_affine(msm.msm(curve, (x, y, inf), sc)), families)
     return out
 
 
@@ -1672,13 +1714,499 @@ def run_tree_path(device, rng, rng_host, gpu):
     return main_counts, line, kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the affine addition's kernels (K9, K10) against their plain
+# versions
+# ---------------------------------------------------------------------------
+
+
+def aff_operands(spec, n: int, rng: np.random.Generator, device):
+    """P = (x1, y1, i1), Q = (x2, y2, i2) [L, n] from
+    ``planted_pair_coords`` and y-negation masks neg1, neg2 [n], 1 in 3
+    set at random, planted: neg2 over the opposite points' warp (96-127),
+    which makes them tangents, neg1 over 192-255 and neg2 over 224-255."""
+    x1, y1, i1, x2, y2, i2 = planted_pair_coords(spec, n, rng, device)
+    lane = torch.arange(n, device=device)
+    neg1 = torch.from_numpy(rng.integers(0, 3, size=n) == 0).to(device)
+    neg2 = torch.from_numpy(rng.integers(0, 3, size=n) == 0).to(device)
+    neg1 = neg1 | ((lane >= 192) & (lane < 256))
+    neg2 = neg2 | ((lane >= 96) & (lane < 128)) | ((lane >= 224) & (lane < 256))
+    return (x1, y1, i1), (x2, y2, i2), neg1, neg2
+
+
+def check_aff_kernels(spec, rng, device, a_mont=None):
+    """K9 and K10 for one field against their plain versions on ragged n
+    with planted lanes and warps, with and without the masks; and once with
+    P a strided view, Q one point for every lane (lane stride 0) and a
+    strided mask."""
+    from algebra_tpu_torch.ops import mont_kernels as mk, sw_kernels as swk
+
+    def compare(P, Q, negs, Pp, Qp, negs_p):
+        den = swk.aff_denom(spec, P, Q, *negs)
+        k9 = tuple_mismatches(den, swk.aff_denom_plain(spec, *Pp, *Qp, *negs_p))
+        inv = mk.batch_inverse(spec, den.reshape(spec.n_limbs, -1)).reshape(den.shape)
+        k10 = tuple_mismatches(swk.aff_post(spec, a_mont, P, Q, inv, *negs),
+                               swk.aff_post_plain(spec, a_mont, *Pp, *Qp, inv, *negs_p))
+        return {"aff_denom": k9[0], "aff_post": k10[0], "max_abs_err": max(k9[1], k10[1])}
+
+    cases = []
+    for n in (1, 31, 4097, 65539):
+        P, Q, neg1, neg2 = aff_operands(spec, n, rng, device)
+        for negs in ((neg1, neg2), (None, None)):
+            cases.append({"n": n, "masks": negs[0] is not None,
+                          **compare(P, Q, negs, P, Q, negs)})
+    n = 4097
+    P, Q, neg1, _ = aff_operands(spec, 2 * n, rng, device)
+    Ps = tuple(c[..., ::2] for c in P)
+    Q1 = tuple(c[..., 5] for c in Q)
+    Q1e = (Q1[0][:, None].expand(-1, n), Q1[1][:, None].expand(-1, n), Q1[2].expand(n))
+    strided = compare(Ps, Q1, (neg1[::2], None), tuple(c.contiguous() for c in Ps), Q1e,
+                      (neg1[::2].contiguous(), None))
+    # a [64, 64] batch from P [L, 1, 64], Q [L, 64, 1] and masks [64, 1],
+    # [1, 64]: no operand's batch axes collapse to one stride, so the wrapper
+    # copies all eight, and each copy must live until the launch
+    P, Q, neg1, neg2 = aff_operands(spec, 64, rng, device)
+    Pb = (P[0][:, None, :], P[1][:, None, :], P[2][None, :])
+    Qb = (Q[0][:, :, None], Q[1][:, :, None], Q[2][:, None])
+    negs_b = (neg1[:, None], neg2[None, :])
+    full = lambda c: c.expand(c.shape[:-2] + (64, 64)).contiguous()  # noqa: E731
+    grid = compare(Pb, Qb, negs_b, tuple(map(full, Pb)), tuple(map(full, Qb)),
+                   tuple(map(full, negs_b)))
+    torch.cuda.synchronize()
+    return {"field": spec.name, "words": spec.n_words, "a": a_mont is not None,
+            "cases": cases, "strided_broadcast": strided, "broadcast_2d": grid}
+
+
+def aff_case_failures(case: dict) -> list:
+    return [c for c in case["cases"] + [case["strided_broadcast"], case["broadcast_2d"]]
+            if c["aff_denom"] or c["aff_post"]]
+
+
+def cube_root_of_one(curve) -> int:
+    """A nontrivial cube root of one in the base field (p = 1 mod 3): with
+    it (beta x, y) is on an a = 0 curve beside (x, y), with the same y."""
+    p = curve.base.spec.modulus
+    return curve.glv["beta"] if curve.glv else pow(2, (p - 1) // 3, p)
+
+
+def check_aff_on_curve(curve, rng_host) -> dict:
+    """``SWCurve.affine_add`` on 64 pairs of real points (P + Q, P + P,
+    P + (-P), P + inf, inf + Q, inf + inf, equal y), with and without
+    masks, through K9, the blocked inversion and K10, against the host
+    group law."""
+    p = curve.base.spec.modulus
+    ps, qs = curve.random_host(rng_host, 64), curve.random_host(rng_host, 64)
+    qs[5], ps[6], qs[7], ps[9] = ps[5], None, None, None
+    qs[8] = (ps[8][0], p - ps[8][1])
+    qs[9] = None
+    beta = cube_root_of_one(curve)
+    qs[10] = (ps[10][0] * beta % p, ps[10][1])  # equal y, x apart
+    neg1 = [i % 3 == 0 for i in range(64)]
+    neg2 = [i % 5 == 0 or i == 8 for i in range(64)]  # lane 8: P + (-(-P)) = 2P
+    dev = curve.device
+    flip = lambda pt, m: pt if pt is None or not m else (pt[0], (p - pt[1]) % p)  # noqa: E731
+    bad = 0
+    for masks in (False, True):
+        n1 = torch.tensor(neg1, device=dev) if masks else None
+        n2 = torch.tensor(neg2, device=dev) if masks else None
+        x, y, inf = curve.affine_add(curve.from_host(ps), curve.from_host(qs),
+                                     curve.base.batch_inverse, n1, n2)
+        got = [None if i else (a, b) for a, b, i in
+               zip(curve.base.to_int(x), curve.base.to_int(y), inf.tolist())]
+        want = [curve.host_add(flip(a, masks and m1), flip(b, masks and m2))
+                for a, b, m1, m2 in zip(ps, qs, neg1, neg2)]
+        bad += sum(g != w for g, w in zip(got, want))
+    return {"curve": curve.name, "pairs": 64, "host_oracle_mismatches": bad}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: batch point ops and scalar multiplication (BASELINE configs[2])
+# ---------------------------------------------------------------------------
+
+AFF_LOG = 20  # entry.batch_affine_add: 2^20 pairs of each curve
+GLV_LOG = 18  # entry.scalar_mul (GLV) and WnafContext.mul on secp256k1
+FIXED_LOG, FIXED_C = 20, 8  # entry.fixed_base_msm
+TE_LOG = 16  # entry.scalar_mul on Jubjub
+HOST_SAMPLE = 1024
+AFF_SAMPLE = 1 << 14
+AFF_KERNELS = ("aff_denom", "aff_post", "inv_prefix", "inv_fermat", "inv_backward")
+PATH_FAMILIES = AFF_KERNELS + ("jac_double", "jac_add", "mont_mul")
+
+
+def launches_of(fn):
+    """(result, launches by kernel) of one call of ``fn``: the counts are
+    set to 0 just before it and read just after."""
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    mk.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in mk.launches.items() if v}
+
+
+def measure(fn, need: tuple) -> tuple:
+    """(result, {ms, ms_runs, launches, peak_memory_bytes, profiled}) of a
+    path's call: launches by kernel of a first (warm) call, which must
+    launch each kernel of ``need``, the median of 3 synchronised calls
+    after it and their peak device memory, one more call under
+    torch.profiler."""
+    out, counts = launches_of(fn)
+    idle = [k for k in need if not counts.get(k)]
+    if idle:
+        raise AssertionError(f"a call of the scalar-mul path launched no {idle}: {counts}")
+    torch.cuda.reset_peak_memory_stats()
+    ms, runs = median_ms(fn)
+    peak = torch.cuda.max_memory_allocated()
+    return out, {"ms": ms, "ms_runs": runs, "launches": counts, "peak_memory_bytes": peak,
+                 "profiled": profile_call(fn, PATH_FAMILIES, top=8)}
+
+
+def host_pool(curve, rng_host, n: int = 256) -> list:
+    """n distinct subgroup points k0 G + i d G made on the host by
+    additions (one host multiplication costs ~20-40 ms, an addition
+    ~0.1 ms)."""
+    r = curve.scalar_modulus
+    g = curve.generator_host
+    step = curve.host_mul(g, rng_host.randrange(1, r))
+    pts = [curve.host_mul(g, rng_host.randrange(1, r))]
+    for _ in range(n - 1):
+        pts.append(curve.host_add(pts[-1], step))
+    return pts
+
+
+def host_muls(curve, pts: list, ks: list) -> list:
+    """k P for each pair on the host, in projective coordinates with one
+    inversion at the end (Jacobian madd-2007-bl / dbl-2009-l for a = 0
+    short-Weierstrass, extended madd/dbl-2008-hwcd for twisted Edwards):
+    an oracle of its own, ~10x faster than the curve's affine
+    ``host_mul``, which it is held against on its first 4 lanes."""
+    p = curve.base.spec.modulus
+    te = hasattr(curve, "d_host")
+
+    def sw_mul(pt, k):
+        if pt is None or k % curve.scalar_modulus == 0:
+            return None
+        x2, y2 = pt
+        X, Y, Z = 1, 1, 0
+        for bit in bin(k)[2:]:
+            if Z:
+                A, B = X * X % p, Y * Y % p
+                C = B * B % p
+                D = 2 * ((X + B) ** 2 - A - C) % p
+                E = 3 * A % p
+                Z = 2 * Y * Z % p
+                X = (E * E - 2 * D) % p
+                Y = (E * (D - X) - 8 * C) % p
+            if bit == "1":
+                if Z == 0:
+                    X, Y, Z = x2, y2, 1
+                    continue
+                Z1Z1 = Z * Z % p
+                H = (x2 * Z1Z1 - X) % p
+                rr = 2 * (y2 * Z * Z1Z1 - Y) % p
+                if H == 0:  # the sum is 2 P or infinity: the affine law
+                    zi = pow(Z, -1, p)
+                    acc = curve.host_add((X * zi * zi % p, Y * zi * zi * zi % p), pt)
+                    if acc is None:
+                        X, Y, Z = 1, 1, 0
+                    else:
+                        X, Y, Z = acc[0], acc[1], 1
+                    continue
+                HH = H * H % p
+                I = 4 * HH % p
+                J, V = H * I % p, X * I % p
+                X3 = (rr * rr - J - 2 * V) % p
+                Y = (rr * (V - X3) - 2 * Y * J) % p
+                Z = ((Z + H) ** 2 - Z1Z1 - HH) % p
+                X = X3
+        if Z == 0:
+            return None
+        zi = pow(Z, -1, p)
+        return (X * zi * zi % p, Y * zi * zi * zi % p)
+
+    def te_mul(pt, k):
+        a, d = curve.a_host % p, curve.d_host % p
+        x2, y2 = pt
+        t2 = x2 * y2 % p
+        X, Y, T, Z = 0, 1, 0, 1
+        for bit in bin(k % curve.scalar_modulus)[2:]:
+            A, B = X * X % p, Y * Y % p
+            C = 2 * Z * Z % p
+            D = a * A % p
+            E = ((X + Y) ** 2 - A - B) % p
+            G = (D + B) % p
+            F, H = (G - C) % p, (D - B) % p
+            X, Y, T, Z = E * F % p, G * H % p, E * H % p, F * G % p
+            if bit == "1":
+                A, B = X * x2 % p, Y * y2 % p
+                C = d * T % p * t2 % p
+                E = ((X + Y) * (x2 + y2) - A - B) % p
+                F, G, H = (Z - C) % p, (Z + C) % p, (B - a * A) % p
+                X, Y, T, Z = E * F % p, G * H % p, E * H % p, F * G % p
+        zi = pow(Z, -1, p)
+        return (X * zi % p, Y * zi % p)
+
+    out = [(te_mul if te else sw_mul)(pt, int(k)) for pt, k in zip(pts, ks)]
+    if out[:4] != [curve.host_mul(pt, k) for pt, k in zip(pts[:4], ks[:4])]:
+        raise AssertionError("the projective host oracle disagrees with host_mul")
+    return out
+
+
+def tile(aff, n: int):
+    """A [256] affine batch tiled to n lanes."""
+    return tuple(a.repeat(1, n // 256) if a.ndim == 2 else a.repeat(n // 256) for a in aff)
+
+
+def host_points(curve, x, y, inf, lanes) -> list:
+    """The affine lanes ``lanes`` of (x, y, inf) as host points."""
+    idx = torch.as_tensor(lanes, device=x.device)
+    xs = curve.base.to_int(x[:, idx])
+    ys = curve.base.to_int(y[:, idx])
+    return [None if i else (a, b) for a, b, i in zip(xs, ys, inf[idx].tolist())]
+
+
+def batch_affine_add_at_scale(curve, key: str, pts: list, rng, device):
+    """``entry.batch_affine_add`` on 2^AFF_LOG pairs drawn from 256 host
+    points, their negatives and their images (beta x, y) (equal y), with
+    ~1 % of lanes planted: tangents 0.3 %, opposite points 0.3 %, equal y
+    0.1 %, P = inf, Q = inf and both 0.1 % each; then with random masks.
+    Every lane against the plain versions on the card (the same inversion
+    of the plain denominators), the planted lanes and AFF_SAMPLE others
+    against the host."""
+    from algebra_tpu_torch import entry
+    from algebra_tpu_torch.ops import sw_kernels as swk
+
+    spec = curve.base.spec
+    p, n = spec.modulus, 1 << AFF_LOG
+    beta = cube_root_of_one(curve)
+    table = pts + [(x, (p - y) % p) for x, y in pts] + [(x * beta % p, y) for x, y in pts]
+    tx, ty, _ = curve.from_host(table)
+    a = rng.integers(0, 256, size=n)
+    b = rng.integers(0, 256, size=n)
+    kind = rng.integers(0, 1000, size=n)
+    b = np.where(kind < 3, a, np.where(kind < 6, a + 256, np.where(kind == 6, a + 512, b)))
+    i1_np, i2_np = (kind == 7) | (kind == 9), (kind == 8) | (kind == 9)
+    ai, bi = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+    P = (tx[:, ai].contiguous(), ty[:, ai].contiguous(), torch.from_numpy(i1_np).to(device))
+    Q = (tx[:, bi].contiguous(), ty[:, bi].contiguous(), torch.from_numpy(i2_np).to(device))
+    neg1 = torch.from_numpy(rng.integers(0, 2, size=n) == 1).to(device)
+    neg2 = torch.from_numpy(rng.integers(0, 2, size=n) == 1).to(device)
+    lanes = np.union1d(np.flatnonzero(kind < 10), rng.choice(n, AFF_SAMPLE, replace=False))
+    out = {"pairs": n, "planted": int((kind < 10).sum()), "host_lanes": len(lanes)}
+    for masks in (False, True):
+        negs = (neg1, neg2) if masks else (None, None)
+        res, stats = measure(lambda: entry.batch_affine_add(P, Q, curve=key, neg1=negs[0],
+                                                            neg2=negs[1], device=device),
+                             AFF_KERNELS)
+        den = swk.aff_denom_plain(spec, *P, *Q, *negs)
+        want, plain_ms = wall_ms(lambda: swk.aff_post_plain(
+            spec, None, *P, *Q, curve.base.batch_inverse(den), *negs))
+        bad = tuple_mismatches(res, want)
+        del den, want
+        n1 = neg1.cpu().numpy() if masks else np.zeros(n, bool)
+        n2 = neg2.cpu().numpy() if masks else np.zeros(n, bool)
+        flip = lambda pt, m: pt if not m else (pt[0], (p - pt[1]) % p)  # noqa: E731
+        want_host = [curve.host_add(None if i1_np[j] else flip(table[a[j]], n1[j]),
+                                    None if i2_np[j] else flip(table[b[j]], n2[j]))
+                     for j in lanes]
+        got_host = host_points(curve, *res, lanes)
+        host_bad = sum(g != w for g, w in zip(got_host, want_host))
+        out["masks" if masks else "no_masks"] = {
+            **stats, "plain_ms": plain_ms, "plain_mismatches": bad[0],
+            "host_oracle_mismatches": host_bad, "inf_out": int(res[2].sum().item())}
+        if bad[0] or host_bad:
+            raise AssertionError(f"batch_affine_add on {key} ({'masks' if masks else 'no masks'})"
+                                 f" differs: {bad[0]} words from the plain version, "
+                                 f"{host_bad} lanes from the host")
+    return out, (P, Q)
+
+
+def aff_kernel_shapes(spec, P, Q) -> dict:
+    """K9 and K10 at the operands of a 2^AFF_LOG batch_affine_add (no
+    masks): device times, the plain versions' times, data-counted bounds."""
+    from algebra_tpu_torch.ops import mont_kernels as mk, sw_kernels as swk
+
+    L, n = spec.n_limbs, P[0].shape[1]
+    want, plain_ms = wall_ms(lambda: swk.aff_denom_plain(spec, *P, *Q))
+    den = swk.aff_denom(spec, P, Q)
+    bad = tuple_mismatches(den, want)
+    out = {"aff_denom": with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: swk.aff_denom(spec, P, Q), 20), "library_ms": None,
+         "library_call": "none: no PyTorch call adds curve points", "shape": [L, n]},
+        n * (4 * L * 4 + 2) + n * L * 4, 0)}
+    inv = mk.batch_inverse(spec, den)
+    want, plain_ms = wall_ms(lambda: swk.aff_post_plain(spec, None, *P, *Q, inv))
+    bad = tuple_mismatches(swk.aff_post(spec, None, P, Q, inv), want)
+    del want
+    _, dbl, _, _ = swk._aff_cases(spec, P[0], P[1], P[2], Q[0], Q[1], Q[2])
+    live = ~(P[2] | Q[2])
+    n_live, n_dbl = int(live.sum().item()), int((live & dbl).sum().item())
+    sq, mul = mads_per_square(spec), mads_per_product(spec)
+    out["aff_post"] = with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: swk.aff_post(spec, None, P, Q, inv), 20),
+         "library_ms": None, "library_call": "none: no PyTorch call adds curve points",
+         "shape": [L, n], "lanes_computed": n_live, "tangent_lanes": n_dbl},
+        n * (5 * L * 4 + 2) + n * (2 * L * 4 + 1), n_live * (2 * mul + sq) + n_dbl * sq)
+    torch.cuda.synchronize()
+    return out
+
+
+def glv_at_scale(curve, pts: list, rng, device) -> dict:
+    """``entry.scalar_mul`` on 2^GLV_LOG secp256k1 points (256 host points
+    tiled) with full-width scalars: the GLV route, every lane in affine
+    against ``SWCurve.scalar_mul(use_glv=False)`` on the card, HOST_SAMPLE
+    lanes against the host; both routes timed."""
+    from algebra_tpu_torch import convert, entry
+
+    n = 1 << GLV_LOG
+    bases = tile(curve.from_host(pts), n)
+    sc_np = random_scalars(n, rng, curve.scalar_modulus)
+    sc = convert.from_reference(sc_np, device)
+    res, glv_stats = measure(lambda: entry.scalar_mul(bases, sc, device=device),
+                             ("jac_double", "jac_add", "mont_mul"))
+    P = curve.from_affine(bases)
+    res_plain, plain_stats = measure(lambda: curve.scalar_mul(P, sc, use_glv=False),
+                                     ("jac_double", "jac_add"))
+    bad = tuple_mismatches(curve.to_affine(res), curve.to_affine(res_plain))[0]
+    lanes = rng.choice(n, HOST_SAMPLE, replace=False)
+    want = host_muls(curve, [pts[j % 256] for j in lanes], limbs_to_ints(sc_np[:, lanes]))
+    got = host_points(curve, *curve.to_affine(res), lanes)
+    host_bad = sum(g != w for g, w in zip(got, want))
+    if bad or host_bad:
+        raise AssertionError(f"GLV scalar_mul differs: {bad} words from the plain route, "
+                             f"{host_bad} lanes from the host")
+    return {"n": n, "glv": glv_stats, "double_and_add": plain_stats,
+            "mismatches_vs_double_and_add": bad, "host_lanes": HOST_SAMPLE,
+            "host_oracle_mismatches": host_bad}
+
+
+def wnaf_at_scale(curve, pts: list, rng_host, device) -> dict:
+    """``WnafContext(curve, 4).mul`` on 2^GLV_LOG tiled points with one host
+    scalar: every lane against the host (256 host multiplications)."""
+    from algebra_tpu_torch.ops import wnaf
+
+    n = 1 << GLV_LOG
+    bases = tile(curve.from_host(pts), n)
+    k = rng_host.randrange(1, curve.scalar_modulus)
+    ctx = wnaf.WnafContext(curve, 4)
+    P = curve.from_affine(bases)
+    res, stats = measure(lambda: ctx.mul(P, k), ("jac_double", "jac_add"))
+    want = tile(curve.from_host(host_muls(curve, pts, [k] * len(pts))), n)
+    got = curve.to_affine(res)
+    bad = tuple_mismatches(got, want)[0]
+    if bad:
+        raise AssertionError(f"wNAF mul differs from the host in {bad} words")
+    return {"n": n, "w": 4, "digits": len(wnaf.wnaf_digits(k, 4)), **stats,
+            "host_oracle_mismatches": bad, "host_lanes": n}
+
+
+def fixed_base_at_scale(curve, rng, device) -> dict:
+    """``entry.fixed_base_msm`` for the generator, c = FIXED_C, on
+    2^FIXED_LOG full-width scalars (the table build timed apart),
+    HOST_SAMPLE lanes against the host."""
+    from algebra_tpu_torch import convert, entry
+    from algebra_tpu_torch.ops import fixed_base
+
+    n = 1 << FIXED_LOG
+    sc_np = random_scalars(n, rng, curve.scalar_modulus)
+    sc = convert.from_reference(sc_np, device)
+    res, stats = measure(lambda: entry.fixed_base_msm(sc, FIXED_C, device=device),
+                         ("jac_double", "jac_add"))
+    table = lambda: fixed_base.window_table(curve, curve.generator(), FIXED_C, 256)  # noqa: E731
+    table()
+    table_ms, table_runs = median_ms(table)
+    lanes = rng.choice(n, HOST_SAMPLE, replace=False)
+    want = host_muls(curve, [curve.generator_host] * len(lanes), limbs_to_ints(sc_np[:, lanes]))
+    got = host_points(curve, *curve.to_affine(res), lanes)
+    host_bad = sum(g != w for g, w in zip(got, want))
+    if host_bad:
+        raise AssertionError(f"fixed-base MSM differs from the host in {host_bad} lanes")
+    return {"n": n, "c": FIXED_C, **stats, "table_ms": table_ms, "table_ms_runs": table_runs,
+            "host_lanes": HOST_SAMPLE, "host_oracle_mismatches": host_bad}
+
+
+def jubjub_at_scale(rng, rng_host, device) -> dict:
+    """``entry.scalar_mul`` on 2^TE_LOG Jubjub points (256 host points
+    tiled) with full-width scalars below the subgroup order, HOST_SAMPLE
+    lanes against the host; clear_cofactor and the subgroup check on 64
+    points outside the subgroup (P + (0, -1), of order 2r)."""
+    from algebra_tpu_torch import convert, entry
+    from algebra_tpu_torch.curves.instances import ed_on_bls12_381
+
+    jub = ed_on_bls12_381.curve(device)
+    q = jub.base.spec.modulus
+    pts = host_pool(jub, rng_host)
+    n = 1 << TE_LOG
+    bases = tile(jub.from_host(pts), n)
+    sc_np = random_scalars(n, rng, jub.scalar_modulus)
+    sc = convert.from_reference(sc_np, device)
+    res, stats = measure(lambda: entry.scalar_mul(bases, sc, curve="ed_on_bls12_381",
+                                                  device=device), ("mont_mul",))
+    lanes = rng.choice(n, HOST_SAMPLE, replace=False)
+    x, y = jub.to_affine(res)
+    idx = torch.as_tensor(lanes, device=device)
+    got = list(zip(jub.base.to_int(x[:, idx]), jub.base.to_int(y[:, idx])))
+    want = host_muls(jub, [pts[j % 256] for j in lanes], limbs_to_ints(sc_np[:, lanes]))
+    host_bad = sum(g != w for g, w in zip(got, want))
+    off = [jub.host_add(pt, (0, q - 1)) for pt in pts[:64]]
+    P_off = jub.from_affine(jub.from_host(off))
+    outside = jub.is_in_correct_subgroup(P_off)
+    cleared = jub.clear_cofactor(P_off)
+    subgroup_ok = (not bool(outside.any()) and bool(jub.is_in_correct_subgroup(cleared).all())
+                   and not any(jub.host_is_in_correct_subgroup(pt) for pt in off[:4])
+                   and jub.to_host(cleared)[:4] == [jub.host_mul_raw(pt, 8) for pt in off[:4]])
+    if host_bad or not subgroup_ok:
+        raise AssertionError(f"Jubjub scalar_mul differs from the host in {host_bad} lanes, "
+                             f"or the subgroup check / cofactor clearing is wrong")
+    return {"n": n, **stats, "host_lanes": HOST_SAMPLE, "host_oracle_mismatches": host_bad,
+            "cofactor_and_subgroup_checks_on_64_points_outside": "passed"}
+
+
+def run_scalar_mul_path(device, rng, rng_host, gpu):
+    """BASELINE configs[2] through the entry points a user calls:
+    ``entry.batch_affine_add`` on secp256k1 and BLS12-381 G1,
+    ``entry.scalar_mul`` (GLV) and ``WnafContext.mul`` on secp256k1,
+    ``entry.fixed_base_msm`` on secp256k1's generator and
+    ``entry.scalar_mul`` on Jubjub, each checked exactly; the launch counts
+    are set to 0 just before each path's first call and read just after it
+    (``measure``), and each path must launch its kernels there.  Then K9
+    and K10 at the shapes of the 2^20 batch_affine_add calls; the counts of
+    the secp256k1 call without masks stand for them on the kernels line."""
+    from algebra_tpu_torch.curves.instances import bls12_381, secp256k1
+
+    secp, g1 = secp256k1.g1(device), bls12_381.g1(device)
+    pools = {"secp256k1": (secp, host_pool(secp, rng_host)),
+             "bls12_381_g1": (g1, host_pool(g1, rng_host))}
+    line = {"phase": "scalar_mul_path"}
+    shapes = {}
+    for key, (curve, pts) in pools.items():
+        line[f"batch_affine_add_{key}"], shapes[key] = batch_affine_add_at_scale(
+            curve, key, pts, rng, device)
+    line["glv_scalar_mul_secp256k1"] = glv_at_scale(secp, pools["secp256k1"][1], rng, device)
+    line["wnaf_secp256k1"] = wnaf_at_scale(secp, pools["secp256k1"][1], rng_host, device)
+    line["fixed_base_msm_secp256k1"] = fixed_base_at_scale(secp, rng, device)
+    line["scalar_mul_jubjub"] = jubjub_at_scale(rng, rng_host, device)
+    counts = line["batch_affine_add_secp256k1"]["no_masks"]["launches"]
+    kernels = aff_kernel_shapes(secp.base.spec, *shapes["secp256k1"])
+    g1_kernels = aff_kernel_shapes(g1.base.spec, *shapes["bls12_381_g1"])
+    for name in kernels:
+        kernels[name]["at_bls12_381_g1"] = g1_kernels[name]
+    bad = {k: v for k, v in kernels.items() if v["mismatches"] or v["at_bls12_381_g1"]["mismatches"]}
+    if bad:
+        raise AssertionError(f"K9/K10 disagree at the path's shapes: {bad}")
+    line.update({"kernel_shapes": kernels, "gpu": gpu})
+    return counts, line, kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
     from algebra_tpu_torch.bigint import batch_int_to_limbs
-    from algebra_tpu_torch.curves.instances import bls12_381, mnt4_753
+    from algebra_tpu_torch.curves.instances import bls12_381, mnt4_753, secp256k1
     from algebra_tpu_torch.fields.spec import field_spec
     from algebra_tpu_torch.kernels import build
 
@@ -1700,7 +2228,8 @@ def main() -> int:
     # the three fields in use, and a modulus with no spare top bit, where the
     # final subtraction has to look at the carry word
     full_width = field_spec(2**256 - 189, name="full_width_256")
-    specs = (fr, bls12_381.fq_spec, mnt4_753.fq_spec, full_width)
+    secp = secp256k1.fq_spec  # a real modulus with no spare bit
+    specs = (fr, bls12_381.fq_spec, mnt4_753.fq_spec, full_width, secp)
     cases = [check_mul_kernel(s, rng, device) for s in specs]
     k5_cases = check_butterfly_kernel(fr, rng, device)
     inv_cases = [check_inverse_kernels(s, rng, device) for s in specs]
@@ -1722,7 +2251,7 @@ def main() -> int:
 
     t0 = time.time()
     sw_cases = [check_sw_kernels(s, rng, device)
-                for s in (full_width, bls12_381.fq_spec, mnt4_753.fq_spec)]
+                for s in (full_width, secp, bls12_381.fq_spec, mnt4_753.fq_spec)]
     on_curve = check_sw_on_curve(device, rng_host)
     emit({"phase": "sw_kernel_cases", "cases": sw_cases, "g1_points": on_curve,
           "sass": {f"w{w}": sass_counts(w) for w in build.WORD_COUNTS},
@@ -1745,6 +2274,19 @@ def main() -> int:
     failed = row_case_failures(row_cases + level_cases)
     if failed or level_on_curve["host_oracle_mismatches"]:
         raise AssertionError(f"tree kernel disagrees: {failed} {level_on_curve}")
+    t0 = time.time()
+    aff_cases = [check_aff_kernels(secp, rng, device),
+                 check_aff_kernels(full_width, rng, device),
+                 check_aff_kernels(bls12_381.fq_spec, rng, device),
+                 check_aff_kernels(mnt4_753.fq_spec, rng, device, a_mont=mnt_a)]
+    aff_on_curve = [check_aff_on_curve(secp256k1.g1(device), rng_host),
+                    check_aff_on_curve(bls12_381.g1(device), rng_host)]
+    emit({"phase": "affine_add_cases", "cases": aff_cases, "real_pairs": aff_on_curve,
+          "seconds": time.time() - t0, "gpu": gpu})
+    failed = [c for case in aff_cases for c in aff_case_failures(case)]
+    failed += [c for c in aff_on_curve if c["host_oracle_mismatches"]]
+    if failed:
+        raise AssertionError(f"affine-add kernel disagrees: {failed}")
     sw_main, msm_shape = check_sw_main_shapes(device, rng, MSM_LOGS[-1])
     bad = {k: v for k, v in sw_main.items() if v["mismatches"]}
     if bad:
@@ -1768,11 +2310,16 @@ def main() -> int:
     bad = {k: v for k, v in tree_main.items() if v["mismatches"]}
     if bad:
         raise AssertionError(f"tree kernel disagrees at the main shape: {bad}")
+    t0 = time.time()
+    scalar_counts, scalar_line, aff_main = run_scalar_mul_path(device, rng, rng_host, gpu)
+    emit({**scalar_line, "seconds": time.time() - t0})
 
     # launches: K1 and K5 as the product path counted them, K2-K4 as the
     # division path did (which also ran K1 and K5: see its own line), K6-K8
     # as the 2^20 G1 MSM did on the lockstep path, K11-K16 as it did through
-    # the affine tree (which also ran K2-K4 and K6-K8: see its own line)
+    # the affine tree (which also ran K2-K4 and K6-K8: see its own line),
+    # K9/K10 as one 2^20 secp256k1 entry.batch_affine_add without masks did
+    # (K2-K4 too; the scalar-mul path's line has each call's counts)
     ntt_src = {"route": "cuda", "source": "algebra_tpu_torch/csrc/mont_kernels.cu",
                "library_ms": None, "gpu": gpu}
     inv_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/inverse_kernels.cu"}
@@ -1790,6 +2337,10 @@ def main() -> int:
          sw_src),
         ("jac_madd", "algebra_tpu/ops/sw_pallas.py:56", msm_counts, sw_main["jac_madd"],
          sw_src),
+        ("aff_denom", "algebra_tpu/ops/sw_pallas.py:199", scalar_counts,
+         aff_main["aff_denom"], sw_src),
+        ("aff_post", "algebra_tpu/ops/sw_pallas.py:216", scalar_counts,
+         aff_main["aff_post"], sw_src),
         ("affr_denom", "algebra_tpu/ops/sw_pallas.py:373", tree_counts,
          tree_main["affr_denom"], sw_src),
         ("affr_post", "algebra_tpu/ops/sw_pallas.py:391", tree_counts,
@@ -1804,10 +2355,10 @@ def main() -> int:
          tree_main["expand_units"], rows_src),
     ]
     emit({"kernels": [
-        {"name": name, "replaces": replaces, "launches": path_counts[name],
+        {"name": name, "replaces": replaces, "launches": path_counts.get(name, 0),
          "kernel_ms": k["ms"], **src, **k}
         for name, replaces, path_counts, k, src in rows]})
-    idle = [name for name, _, path_counts, _, _ in rows if path_counts[name] <= 0]
+    idle = [name for name, _, path_counts, _, _ in rows if path_counts.get(name, 0) <= 0]
     if idle:
         raise AssertionError(f"a path launched no kernel of: {idle}")
     print(gpu, flush=True)

@@ -273,9 +273,10 @@ def test_msm_chunks_and_msm_mont(curves):
 
 
 def test_affine_tree_needs_a_prime_base(curves):
-    """Over a base field that is not prime the tree would need
-    ``SWCurve.affine_add`` (kernels K9/K10, not ported): ``msm`` raises and
-    says so, and does not fall back to the lockstep path."""
+    """Over a base field that is not prime the tree would need the
+    reference's composed level (``SWCurve.affine_add`` over a tower, not
+    ported): ``msm`` raises and says so, and does not fall back to the
+    lockstep path."""
     from algebra_tpu_torch.fields.field import Field
 
     _, pc = curves
@@ -285,7 +286,7 @@ def test_affine_tree_needs_a_prime_base(curves):
     tower.base = Field()
     assert msm._rows_level_fn(tower) is None and msm._rows_level_fn(pc) is not None
     with bucket_path(True):
-        with pytest.raises(NotImplementedError, match="K9/K10"):
+        with pytest.raises(NotImplementedError, match="composed level"):
             msm.msm(tower, pc.from_host(pts), sc, c=C)
 
 

@@ -25,6 +25,7 @@ import torch
 
 from algebra_tpu.bigint import batch_int_to_limbs, batch_limbs_to_int
 from algebra_tpu.curves.instances import bls12_381 as ref_bls, mnt4_753 as ref_mnt
+from algebra_tpu.curves.instances import secp256k1 as ref_secp
 from algebra_tpu.ops import rows_pallas
 
 from algebra_tpu_torch import convert
@@ -183,29 +184,34 @@ def level_rows(ref_curve, spec, pts, with_valid, seed):
     return V, (torch.from_numpy(valid) if with_valid else None), (x, y, inf), valid
 
 
+REF_CURVES = {"bls12_381_g1": ref_bls.g1, "secp256k1": ref_secp.g1}
+
+
 @functools.lru_cache(maxsize=None)
-def ref_affine_add():
-    """The reference's G1 ``affine_add`` on [L, 128] halves, compiled once:
-    called with (P, Q) it returns (x3, y3, inf3, its denominators), the
-    inverses taken as ones; called with the denominators' inverses as well
+def ref_affine_add(name: str):
+    """The reference's ``affine_add`` of one curve on [L, 128] batches with
+    both y-negation masks, compiled once: called with (P, Q) it returns
+    (x3, y3, inf3, its denominators), the inverses taken as ones and no
+    mask set; called with the denominators' inverses (and masks) as well
     it returns the sum that those give."""
-    curve = ref_bls.g1()
+    curve = REF_CURVES[name]()
     spec = curve.base.spec
     shape = jax.ShapeDtypeStruct((spec.n_limbs, 128), jnp.uint32)
     flag = jax.ShapeDtypeStruct((128,), jnp.bool_)
     pt = (shape, shape, flag)
 
-    def run(P, Q, inv):
+    def run(P, Q, inv, neg1, neg2):
         seen = []
 
         def inv_fn(den):
             seen.append(den)
             return inv
-        return (*curve.affine_add(P, Q, inv_fn), seen[0])
+        return (*curve.affine_add(P, Q, inv_fn, neg1=neg1, neg2=neg2), seen[0])
 
     ones = jnp.asarray(np.tile(spec.one_mont_limbs.astype(np.uint32)[:, None], (1, 128)))
-    fn = jax.jit(run).lower(pt, pt, shape).compile(compiler_options=FAST_COMPILE)
-    return lambda P, Q, inv=ones: fn(P, Q, jnp.asarray(inv))
+    none = np.zeros(128, np.bool_)
+    fn = jax.jit(run).lower(pt, pt, shape, flag, flag).compile(compiler_options=FAST_COMPILE)
+    return lambda P, Q, inv=ones, neg1=none, neg2=none: fn(P, Q, jnp.asarray(inv), neg1, neg2)
 
 
 @pytest.mark.parametrize("with_valid", [True, False])
@@ -229,10 +235,10 @@ def test_affine_add_rows_vs_reference(with_valid):
         if with_valid:
             i = i | ~jnp.asarray(valid[par::2])
         halves.append((jnp.asarray(x[:, par::2]), jnp.asarray(y[:, par::2]), i))
-    want = ref_affine_add()(*halves)
+    want = ref_affine_add("bls12_381_g1")(*halves)
     seen["den"] = convert.from_reference(np.asarray(want[3]), "cpu")
     seen["inv"] = host_inverse(spec, seen["den"])
-    want = ref_affine_add()(*halves, convert.to_reference(seen["inv"]))[:3]
+    want = ref_affine_add("bls12_381_g1")(*halves, convert.to_reference(seen["inv"]))[:3]
 
     def port_inv(den):
         assert torch.equal(den, seen["den"])
