@@ -38,10 +38,11 @@ __device__ __forceinline__ void mod_dbl(uint32_t (&r)[W], const uint32_t (&a)[W]
 }
 
 // The products of the group law.  Up to 12 words they are inlined, as in
-// every other kernel.  At 24 words one product is ~3,500 instructions, and
-// a group-law kernel with all its products inlined is 75,000-95,000:
-// ptxas then takes minutes (PERF.md), for a word count that no path of the
-// port runs yet.  There each product is a call to one out-of-line copy.
+// every other kernel.  At 24 words one product is ~4 W^2 = 2,300
+// instructions, and a group-law kernel with all its products inlined is
+// tens of thousands: ptxas then takes minutes (PERF.md), for a word count
+// that no path of the port runs yet.  There each product is a call to one
+// out-of-line copy.
 template <int W>
 __device__ __noinline__ void mont_mul_call(uint32_t (&r)[W], const uint32_t (&a)[W],
                                            const uint32_t (&b)[W],

@@ -1,32 +1,31 @@
 // The Jacobian group-law kernels of the MSM path: K6 doubling, K7 full
-// addition, K8 mixed addition (a = 0 curves over a prime field); below them
-// the affine additions, K11/K12 on packed rows and K9/K10 on coordinate
-// arrays (any a).  Built and bound as launch.cuh says; the group law itself
-// is in sw.cuh.
+// addition, K8 mixed addition (a = 0 curves over a prime field) in two
+// kernels, the general one on any operands and the one that runs a
+// lockstep round of the MSM's bucket phase; below them the affine
+// additions, K11/K12 on packed rows and K9/K10 on coordinate arrays (any
+// a).  Built and bound as launch.cuh says; the group law itself is in
+// sw.cuh, the field arithmetic (carry-chain Montgomery products) in
+// mont.cuh.
 //
 // They replace the TPU kernels _double_kernel, _add_kernel and _madd_kernel
 // (algebra_tpu/ops/sw_pallas.py:111, :120, :56).  One thread per lane,
 // grid-stride.  What holds them back on this card:
 //   * operations as much as bytes: K8 moves 8 L words a lane (five
-//     coordinates in, three out) and the flag, and does 11 Montgomery
-//     products; at W = 12 that is 769 B against ~3000 32-bit multiply-adds,
-//     close to the card's ratio of integer rate to memory rate, and the
-//     carry chains add instructions beyond the multiply-adds (PERF.md has
-//     the count from the compiled code);
+//     coordinates in, three out) and does 11 Montgomery products; at
+//     W = 12 that is 769 B against ~3000 32-bit multiply-adds, close to
+//     the card's ratio of integer rate to memory rate (PERF.md has the
+//     instruction counts from the compiled code);
 //   * registers: a lane holds five or six coordinates and the product's
-//     window, so few warps fit a multiprocessor and the latency of the
-//     dependent multiply-add chains is poorly hidden;
-//   * the MSM's lockstep round gathers the affine operand point-major and
-//     selects its sign in plain PyTorch before K8 reads it.
-// A later PR can fold the gather and the sign into K8 and stage operands
-// in shared memory; these kernels are the simple, exact version.
+//     running sum, so few warps fit a multiprocessor and the latency of
+//     the dependent multiply-add chains is poorly hidden.  The round
+//     kernel bounds its registers with __launch_bounds__ (kRoundBlocks).
 //
-// Operands.  Every input coordinate is read at word k * ls + i * bs for
-// limb k of lane i, so a coordinate may be a full limb-major [L, n] array
-// (ls = n, bs = 1), one element broadcast over the batch (ls = 1, bs = 0),
-// or point-major rows [n, L] gathered by the MSM (ls = 1, bs = L or 2L),
-// without a copy.  Outputs are limb-major [L, n].  An output may be the
-// same array as the matching input P coordinate (the MSM accumulates in
+// Operands of the general kernels.  Every input coordinate is read at word
+// k * ls + i * bs for limb k of lane i, so a coordinate may be a full
+// limb-major [L, n] array (ls = n, bs = 1), one element broadcast over the
+// batch (ls = 1, bs = 0), or point-major rows [n, L] (ls = 1, bs = L or
+// 2L), without a copy.  Outputs are limb-major [L, n].  An output may be
+// the same array as the matching input P coordinate (accumulation in
 // place): a thread reads its lane before it writes it, and no other thread
 // touches that lane.
 
@@ -106,6 +105,81 @@ jac_madd_kernel(Operand x1, Operand y1, Operand z1, Operand x2, Operand y2,
     bool inf = q_inf[i * inf_bs] != 0;
     jac_madd<W>(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, inf, one, fp);
     store_point<W>(xo, yo, zo, n, i, X3, Y3, Z3);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K8 in the MSM's lockstep bucket phase: one launch a round.  Lane i of the
+// accumulators (limb-major [L, m], updated in place) is one (window, bucket);
+// its points are the run order[first[i] .. first[i] + count[i]) of the
+// window's sorted signed order, whose entries are rows of the signed table
+// ([2n, 2L] point-major, x | y, row n + j holding -y_j: the digit's sign
+// is in the row).  Round r:
+//   * r < count[i]: the lane reads row order[first[i] + r] itself, as
+//     16-byte pieces (a row is 16 W bytes), and adds it: jac_madd with Q
+//     finite;
+//   * otherwise Q is infinity, and the reference's rule applies bit for
+//     bit: where Z1 = 0 the lane becomes (one, one, 0) (an accumulator can
+//     hold (X, Y, 0) with X, Y != one after P + (-P)); elsewhere it is left
+//     as it is and not written.
+// The round's gather, sign and infinity mask so take no launch of their
+// own and no array in device memory.  By the count, bytes bound a round
+// (P read and written, the row, the order entry, first and count: 792 B
+// a lane at W = 12) about as much as the multiply-adds do; the registers
+// a lane needs decide the occupancy (kRoundBlocks).
+// ---------------------------------------------------------------------------
+
+// Blocks of kThreads a multiprocessor must hold: the register budget of
+// the round kernel, 65536 / (kThreads * kRoundBlocks) a thread.  At 24
+// words a lane's five coordinates alone take 120 registers.  At 12 words
+// no bound is free of spills; 4 blocks (a small spill) against 3 is timed
+// at the MSM's rounds by chip_probes.py round-blocks, which builds the
+// other bound with -DROUND_BLOCKS=n (PERF.md has the readings).
+#ifdef ROUND_BLOCKS
+constexpr int kRoundBlocks = ROUND_BLOCKS;
+#else
+constexpr int kRoundBlocks = kW <= 12 ? 4 : 1;
+#endif
+
+// v, with the compiler told nothing of where it came from.  The round
+// kernel writes its accumulators at the addresses it read them from; left
+// alone, the compiler keeps the 6 W load addresses live across the whole
+// addition to reuse them for the stores, which took the kernel to the
+// 255-register ceiling with spills at 12 words.  Stores through opaque
+// copies of the base and the index recompute their addresses instead.
+template <class T>
+__device__ __forceinline__ T opaque(T v) {
+  asm volatile("" : "+l"(v));
+  return v;
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, kRoundBlocks)
+jac_madd_round_kernel(uint32_t* __restrict__ xa, uint32_t* __restrict__ ya,
+                      uint32_t* __restrict__ za, size_t m,
+                      const uint32_t* __restrict__ table,
+                      const int64_t* __restrict__ order,
+                      const int64_t* __restrict__ first,
+                      const int64_t* __restrict__ count, int64_t r, FieldParams<W> fp,
+                      Words<W> one) {
+  size_t step = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < m; i += step) {
+    uint32_t Z1[W];
+    if (r < count[i]) {
+      const uint4* row = reinterpret_cast<const uint4*>(
+          table + (size_t)order[first[i] + r] * (4 * W));
+      uint32_t X1[W], Y1[W], X2[W], Y2[W], X3[W], Y3[W], Z3[W];
+      load_row_coord<W>(X2, row);
+      load_row_coord<W>(Y2, row + W / 2);
+      load_limbs<W>(X1, xa, m, i);
+      load_limbs<W>(Y1, ya, m, i);
+      load_limbs<W>(Z1, za, m, i);
+      jac_madd<W>(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, false, one, fp);
+      store_point<W>(opaque(xa), opaque(ya), opaque(za), opaque(m), opaque(i), X3, Y3, Z3);
+    } else {
+      load_limbs<W>(Z1, za, m, i);
+      if (is_zero<W>(Z1)) store_point<W>(xa, ya, za, m, i, one.w, one.w, Z1);
+    }
   }
 }
 
@@ -352,6 +426,17 @@ int jac_madd_launch(const void* x1, size_t x1_ls, size_t x1_bs, const void* y1,
       op(x2, x2_ls, x2_bs), op(y2, y2_ls, y2_bs), (const uint8_t*)q_inf, inf_bs,
       (uint32_t*)xo, (uint32_t*)yo, (uint32_t*)zo, n, make_params(p_words, inv32),
       make_words(one_words));
+  return (int)cudaGetLastError();
+}
+
+int jac_madd_round_launch(void* xa, void* ya, void* za, size_t m, const void* table,
+                          const void* order, const void* first, const void* count,
+                          long long r, const uint32_t* p_words, uint32_t inv32,
+                          const uint32_t* one_words, void* stream) {
+  jac_madd_round_kernel<kW><<<grid_for(m), kThreads, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)xa, (uint32_t*)ya, (uint32_t*)za, m, (const uint32_t*)table,
+      (const int64_t*)order, (const int64_t*)first, (const int64_t*)count, (int64_t)r,
+      make_params(p_words, inv32), make_words(one_words));
   return (int)cudaGetLastError();
 }
 

@@ -5,11 +5,14 @@ shared libraries with a plain C interface, one per source file and 32-bit
 word count (``-DMONT_W=8|12|24``), and loaded with ``ctypes``.  A library is
 built the first time a CUDA tensor needs it; importing this module needs
 neither ``nvcc`` nor CUDA.  File names carry a hash of all the sources, so
-an edited source never meets a stale library.
+an edited source never meets a stale library.  A measurement may build a
+variant of a library with extra ``-D`` defines (``variant``), such as
+another register bound for a kernel; the main path never does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,6 +29,7 @@ _HEADERS = ("mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh")
 WORD_COUNTS = (8, 12, 24)
 
 _libs: dict[tuple[str, int], ctypes.CDLL] = {}
+_defines: dict[tuple[str, int], tuple[str, ...]] = {}  # variants in use
 
 
 def _nvcc() -> str:
@@ -47,20 +51,22 @@ def _source_hash() -> str:
     return h.hexdigest()[:12]
 
 
-def library_path(source: str, words: int) -> str:
-    return os.path.join(config.build_dir, f"lib{source}_w{words}_{_source_hash()}.so")
+def library_path(source: str, words: int, defines: tuple[str, ...] = ()) -> str:
+    tag = "".join(f"_{d.replace('=', '')}" for d in defines)
+    return os.path.join(config.build_dir, f"lib{source}_w{words}{tag}_{_source_hash()}.so")
 
 
-def _start_build(source: str, words: int) -> tuple[subprocess.Popen, str, str]:
+def _start_build(source: str, words: int,
+                 defines: tuple[str, ...] = ()) -> tuple[subprocess.Popen, str, str]:
     """Start one nvcc; returns (process, temporary output, final path)."""
     if source not in KERNEL_SOURCES or words not in WORD_COUNTS:
         raise ValueError(f"no kernel instance of {source} for {words} words")
     os.makedirs(config.build_dir, exist_ok=True)
-    final = library_path(source, words)
+    final = library_path(source, words, defines)
     tmp = f"{final}.{os.getpid()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        f"-DMONT_W={words}", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+        f"-DMONT_W={words}", *(f"-D{d}" for d in defines), "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
         "-o", tmp, os.path.join(_CSRC, f"{source}.cu"),
     ]
     log = open(final + ".log", "wb")
@@ -105,9 +111,9 @@ def build_all(word_counts=WORD_COUNTS) -> dict[str, float]:
     return done
 
 
-def build_log(source: str, words: int) -> str:
+def build_log(source: str, words: int, defines: tuple[str, ...] = ()) -> str:
     """What nvcc/ptxas printed for this library (registers, spills)."""
-    with open(library_path(source, words) + ".log", "r", errors="replace") as f:
+    with open(library_path(source, words, defines) + ".log", "r", errors="replace") as f:
         return f.read()
 
 
@@ -141,6 +147,8 @@ def _signatures() -> dict[str, dict[str, list]]:
             "jac_add_launch": [vp, sz, sz] * 6 + [vp, vp, vp, sz, words_p, u32, vp],
             "jac_madd_launch": [vp, sz, sz] * 5 + [vp, sz, vp, vp, vp, sz, words_p, u32,
                                                    words_p, vp],
+            "jac_madd_round_launch": [vp, vp, vp, sz, vp, vp, vp, vp, ctypes.c_longlong,
+                                      words_p, u32, words_p, vp],
             "affr_denom_launch": [vp, vp, vp, sz, words_p, u32, words_p, vp],
             "affr_post_launch": [vp, vp, vp, vp, sz, words_p, u32, words_p, ci, vp],
             "aff_denom_launch": aff_in + [vp, sz, words_p, u32, words_p, vp],
@@ -158,13 +166,15 @@ def _signatures() -> dict[str, dict[str, list]]:
 
 def library(source: str, words: int) -> ctypes.CDLL:
     """The loaded library of ``source`` for ``words`` 32-bit words per
-    element, built first if it is not there."""
-    lib = _libs.get((source, words))
+    element (the variant that ``variant`` put in place, if any), built
+    first if it is not there."""
+    defines = _defines.get((source, words), ())
+    lib = _libs.get((source, words, defines))
     if lib is not None:
         return lib
-    path = library_path(source, words)
+    path = library_path(source, words, defines)
     if not os.path.exists(path):
-        _finish_build(*_start_build(source, words))
+        _finish_build(*_start_build(source, words, defines))
     lib = ctypes.CDLL(path)
     for name, argtypes in _signatures()[source].items():
         fn = getattr(lib, name)
@@ -173,5 +183,18 @@ def library(source: str, words: int) -> ctypes.CDLL:
     built_for = getattr(lib, source.split("_")[0] + "_words")()
     if built_for != words:
         raise RuntimeError(f"{path} was built for {built_for} words, not {words}")
-    _libs[(source, words)] = lib
+    _libs[(source, words, defines)] = lib
     return lib
+
+
+@contextlib.contextmanager
+def variant(source: str, words: int, defines: tuple[str, ...]):
+    """Within the block, every launch from ``source`` at ``words`` goes to
+    the library built with the extra ``-D`` ``defines`` (built on first
+    use): for measuring a variant of a kernel beside the one in use."""
+    saved = _defines.get((source, words), ())
+    _defines[(source, words)] = tuple(defines)
+    try:
+        yield library(source, words)
+    finally:
+        _defines[(source, words)] = saved

@@ -83,6 +83,7 @@ from ..fields.spec import FieldSpec
 # kernel and nowhere else.
 launches = {"mont_mul": 0, "butterfly": 0, "inv_prefix": 0, "inv_fermat": 0,
             "inv_backward": 0, "jac_double": 0, "jac_add": 0, "jac_madd": 0,
+            "jac_madd_round": 0,
             "aff_denom": 0, "aff_post": 0, "affr_denom": 0, "affr_post": 0, "pack": 0, "unpack": 0,
             "negate_y": 0, "expand_units": 0}
 

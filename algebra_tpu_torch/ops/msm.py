@@ -9,22 +9,24 @@ Counterpart of the JAX package's ``ops/msm.py``, lockstep half (its
     (``recode_group``), without a binary search: a scatter-min of first
     positions and a reversed running minimum.
   * **Bucket accumulation in lockstep**: round r adds the r-th point of
-    every (window, bucket) at once, one batched mixed addition (kernel K8)
-    of width windows x buckets, written over the accumulators in place.
-    The rounds stop at the K-th largest bucket count of the full windows;
-    the few buckets left run on a compacted K-wide batch
-    (``_drain_bucket_tail``), and the top window, whose digits crowd into
-    few buckets, finishes alone.
+    every (window, bucket) at once, one launch of K8's round kernel
+    (``sw_kernels.madd_rounds``) of width windows x buckets, written over
+    the accumulators in place.  The rounds stop at the K-th largest bucket
+    count of the full windows; the few buckets left run on a compacted
+    K-wide batch (``_drain_bucket_tail``), and the top window, whose digits
+    crowd into few buckets, finishes alone.
   * **Weighted bucket reduction** sum_k (k+1) S_k as a blocked double
     suffix scan (``_weighted_tree_reduce``: kernels K7 and K6), and the
     **Horner fold** over windows with c doublings each (K6, K7).
 
-Where the reference negates the gathered y and selects by the digit's sign
-in every round, the port folds the sign into the gather: one table of 2n
-point-major rows (x | y, then x | -y) is built once per MSM, and the
-recoded order carries +n for a negative digit, so a round is one row
-gather that K8 reads through strides.  The result is the reference's point,
-bit for bit in Jacobian coordinates.
+Where the reference gathers the rows, negates y and selects by the digit's
+sign in every round, the port folds the sign into the table: one table of
+2n point-major rows (x | y, then x | -y) is built once per MSM, and the
+recoded order carries +n for a negative digit.  Each lane's run in the
+flat order (``first``, ``count``) is computed once per ``bucket_sums``, and
+the round kernel reads its row itself, so a round is one launch and no
+other device work.  The result is the reference's point, bit for bit in
+Jacobian coordinates.
 
 With ``config.msm_affine_tree`` the bucket phase is the reference's
 **affine halving tree** instead (its TPU path), per group of windows
@@ -221,71 +223,74 @@ def signed_table(curve, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                       torch.cat([xr, curve.base.neg(y).T], dim=1)], dim=0).contiguous()
 
 
-def _rows_affine(rows: torch.Tensor, L: int, inf: torch.Tensor):
-    """Gathered rows [..., 2L] as an affine batch whose coordinates are
-    strided views (limb stride 1, lane stride 2L): K8 reads them in place."""
-    return (rows[..., :L].movedim(-1, 0), rows[..., L:].movedim(-1, 0), inf)
+def lane_runs(order_s: torch.Tensor, start: torch.Tensor, counts: torch.Tensor):
+    """The round kernel's operands from ``recode``'s: each (window, bucket)
+    lane's run in the flat sorted order, (order [W n], first = w n + start,
+    count), the lanes flat as w B + b."""
+    W, n = order_s.shape
+    first = (start + n * torch.arange(W, device=start.device)[:, None]).reshape(-1)
+    return order_s.reshape(-1), first, counts.reshape(-1)
 
 
-def _lockstep_rounds(curve, acc, table, order_s, start, counts, r0: int, r1: int):
-    """Rounds [r0, r1) over [g, B] buckets: round r adds each bucket's r-th
-    point (infinity past its count) into ``acc`` in place."""
-    L = curve.base.spec.n_limbs
-    n = order_s.shape[1]
+def _lockstep_rounds(curve, acc, table, order, first, count, r0: int, r1: int):
+    """Rounds [r0, r1) in place: round r adds to lane i of ``acc`` (three
+    contiguous [L, m]) the table row order[first[i] + r], or infinity where
+    r >= count[i].  K8's round kernel for a = 0; a curve with a != 0 has no
+    kernel, and runs the composed mixed addition over the same rows."""
+    spec = curve.base.spec
+    if curve.a_is_zero:
+        sw_kernels.madd_rounds(spec, acc, table, order, first, count, r0, r1)
+        return
     for r in range(r0, r1):
-        idx = torch.gather(order_s, 1, (start + r).clamp_(max=n - 1))
-        curve.add_mixed(acc, _rows_affine(table[idx], L, counts <= r), out=acc)
+        curve.add_mixed(acc, sw_kernels.round_operand(spec, table, order, first, count, r),
+                        out=acc)
 
 
-def _drain_bucket_tail(curve, acc, table, order_s, start, counts_f, W_full: int,
-                       r0: int, r1: int, K: int):
+def _drain_bucket_tail(curve, acc, table, order, first, counts_f, r0: int, r1: int,
+                       K: int):
     """Finish the <= K-1 overfull (window, bucket) pairs of the full windows
     that the capped lockstep loop left, on a compacted [K]-wide batch:
     gather their accumulators, run rounds [r0, r1), scatter them back.
-    Entries picked only to fill K out add infinity."""
-    L = curve.base.spec.n_limbs
-    n_buckets = start.shape[1]
-    n = order_s.shape[1]
+    ``counts_f`` covers the full windows; lanes picked only to fill K out
+    add infinity."""
     surv = torch.argsort(-counts_f)[:K]  # flat w * n_buckets + b
-    w_off = (surv // n_buckets) * n
-    start_c = start[:W_full].reshape(-1)[surv]
-    counts_c = counts_f[surv]
-    order_flat = order_s[:W_full].reshape(-1)
-    flat = [a.reshape(L, -1) for a in acc]
-    compact = tuple(f[:, surv] for f in flat)
-    for r in range(r0, r1):
-        idx = order_flat[w_off + (start_c + r).clamp_(max=n - 1)]
-        curve.add_mixed(compact, _rows_affine(table[idx], L, counts_c <= r), out=compact)
-    for f, comp in zip(flat, compact):
+    first_c, counts_c = first[surv], counts_f[surv]
+    compact = tuple(f[:, surv] for f in acc)
+    _lockstep_rounds(curve, compact, table, order, first_c, counts_c, r0, r1)
+    for f, comp in zip(acc, compact):
         f[:, surv] = comp
 
 
 def bucket_sums(curve, table, order_s, start, counts):
     """Every bucket's sum, [L, W, B] a coordinate: lockstep rounds up to
     the K-th largest count of the full windows, the compacted drain, then
-    the top window alone."""
+    the top window alone.  Each (window, bucket) lane's run in the flat
+    order (``lane_runs``) is built here once."""
     W, n_buckets = start.shape
+    L = curve.base.spec.n_limbs
     acc = tuple(a.contiguous() for a in curve.zero((W, n_buckets)))
+    flat = tuple(a.view(L, W * n_buckets) for a in acc)
+    order, first, count = lane_runs(order_s, start, counts)
     W_full = W - 1 if W > 1 else W
-    counts_f = counts[:W_full].reshape(-1)
     WB = W_full * n_buckets
+    counts_f = count[:WB]
     K = min(max(64, WB // 16), WB)
     compact_tail = WB > 2 * K  # tiny problems: lockstep to the max
     rounds_max = counts_f.max()
     rounds_full = torch.sort(counts_f).values[WB - K] if compact_tail else rounds_max
     rounds_max, rounds_full, rounds_top = torch.stack(
         [rounds_max, rounds_full, counts[-1].max()]).tolist()  # one sync an MSM
-    _lockstep_rounds(curve, acc, table, order_s, start, counts, 0, rounds_full)
+    _lockstep_rounds(curve, flat, table, order, first, count, 0, rounds_full)
     if compact_tail:
-        _drain_bucket_tail(curve, acc, table, order_s, start, counts_f, W_full,
-                           rounds_full, rounds_max, K)
+        _drain_bucket_tail(curve, flat, table, order, first, counts_f, rounds_full,
+                           rounds_max, K)
     top_end = max(rounds_top, rounds_full)
     if W > 1:
-        top = tuple(a[:, -1:].contiguous() for a in acc)
-        _lockstep_rounds(curve, top, table, order_s[-1:], start[-1:], counts[-1:],
+        top = tuple(a[:, -1].contiguous() for a in acc)
+        _lockstep_rounds(curve, top, table, order, first[WB:], count[WB:],
                          rounds_full, top_end)
         for a, t in zip(acc, top):
-            a[:, -1:] = t
+            a[:, -1] = t
     stats.update(rounds_lockstep=rounds_full,
                  rounds_tail=rounds_max - rounds_full if compact_tail else 0,
                  tail_lanes=K if compact_tail else 0,

@@ -1,6 +1,6 @@
 """The CUDA group-law kernels: wrappers, plain versions.
 
-Counterpart of the JAX package's ``ops/sw_pallas.py``.  Three kernels,
+Counterpart of the JAX package's ``ops/sw_pallas.py``.  Four kernels,
 CUDA C++ over the device functions of ``csrc/sw.cuh``
 (``csrc/sw_kernels.cu``), for short-Weierstrass curves with a = 0 over a
 prime field:
@@ -18,6 +18,12 @@ prime field:
     madd-2007-bl, Jacobian P plus affine Q with an infinity flag, 4
     squarings and 7 products for the generic sum; the same selects, and
     P = inf gives from_affine(Q).
+``jac_madd_round``  (wrappers ``madd_round``, ``madd_rounds``)
+    The same law as one lockstep round of the MSM's bucket phase: each lane
+    reads its own row of the signed point table through the sorted order
+    (the reference gathers the rows, negates y by the digit's sign and
+    selects in jnp around ``_madd_kernel``), so a round is one launch;
+    ``madd_rounds`` runs consecutive rounds with one operand check.
 
 Four more add affine points by the chord/tangent law around a batched
 inversion (a prime field, any a), two on coordinate arrays (wrapper
@@ -55,7 +61,7 @@ kernels' plain versions (``mont_kernels.mul_plain``, ``add_plain``,
 ``sub_plain``) in the kernels' formulas and select like the reference,
 and run on any device.  Launch counts are kept in ``mont_kernels.launches``
 beside the field kernels' (``jac_double``, ``jac_add``, ``jac_madd``,
-``aff_denom``, ``aff_post``, ``affr_denom``, ``affr_post``), so one
+``jac_madd_round``, ``aff_denom``, ``aff_post``, ``affr_denom``, ``affr_post``), so one
 ``reset_launches()`` clears them all.
 """
 
@@ -351,6 +357,71 @@ def madd(spec: FieldSpec, P, aff, out=None):
         _launch("jac_madd", spec, device, *_flat_args(ops), inf_b.data_ptr(), inf_bs,
                 *(o.data_ptr() for o in outs), n, extra=(mk._one_words_arg(spec),))
     return outs
+
+
+def round_operand(spec: FieldSpec, table, order, first, count, r: int):
+    """The affine operand (x2, y2, inf) of lockstep round r: lane i's row
+    ``order[first[i] + r]`` of the signed table as [L, m] views, infinity
+    where r >= count[i] (those lanes read a clamped row, which no law
+    looks at)."""
+    L = spec.n_limbs
+    rows_r = table[order[(first + r).clamp_(max=order.shape[0] - 1)]]
+    return rows_r[:, :L].T, rows_r[:, L:].T, count <= r
+
+
+def madd_round_plain(spec: FieldSpec, acc, table, order, first, count, r: int):
+    """``madd_round`` by gather, clamp, row index and ``madd_plain``,
+    written into ``acc``; any device."""
+    return store(madd_plain(spec, *acc, *round_operand(spec, table, order, first, count, r)),
+                 acc)
+
+
+def _check_round(spec: FieldSpec, acc, table, order, first, count) -> torch.device:
+    L = spec.n_limbs
+    device = acc[0].device
+    m = acc[0].shape[-1]
+    for t in acc:
+        if t.dtype != torch.int32 or tuple(t.shape) != (L, m) or not t.is_contiguous() \
+                or t.device != device:
+            raise ValueError(f"acc must be three contiguous int32 [{L}, {m}] tensors "
+                             f"on one device")
+    if table.dtype != torch.int32 or table.ndim != 2 or table.shape[1] != 2 * L \
+            or not table.is_contiguous() or table.device != device:
+        raise ValueError(f"table must be a contiguous int32 [2n, {2 * L}] tensor on {device}")
+    for name, t, size in (("order", order, None), ("first", first, m), ("count", count, m)):
+        if t.dtype != torch.int64 or t.ndim != 1 or not t.is_contiguous() \
+                or t.device != device or (size is not None and t.shape[0] != size):
+            raise ValueError(f"{name} must be a contiguous int64 vector"
+                             f"{'' if size is None else f' of {size}'} on {device}")
+    return device
+
+
+def madd_round(spec: FieldSpec, acc, table, order, first, count, r: int):
+    """Round r of the MSM's lockstep bucket phase, in place (K8's round
+    kernel ``jac_madd_round``): lane i of the accumulators ``acc`` (three
+    contiguous int32 [L, m]) adds the affine point in row
+    ``order[first[i] + r]`` of the signed table ``table`` (int32 [2n, 2L],
+    ``msm.signed_table``) where r < count[i], and the point at infinity
+    otherwise, with ``madd``'s exceptional cases.  ``order``, ``first``,
+    ``count``: contiguous int64 vectors (``msm.lane_runs``);
+    first[i] + count[i] <= len(order).  One launch and no other device
+    work.  Returns ``acc``."""
+    return madd_rounds(spec, acc, table, order, first, count, r, r + 1)
+
+
+def madd_rounds(spec: FieldSpec, acc, table, order, first, count, r0: int, r1: int):
+    """Rounds r0, ..., r1 - 1 of ``madd_round`` one after another, the
+    operands checked once: a launch a round and nothing else."""
+    device = _check_round(spec, acc, table, order, first, count)
+    m = acc[0].shape[1]
+    for r in range(r0, r1):
+        if device.type == "cpu":
+            madd_round_plain(spec, acc, table, order, first, count, r)
+        elif m:
+            _launch("jac_madd_round", spec, device, *(a.data_ptr() for a in acc), m,
+                    table.data_ptr(), order.data_ptr(), first.data_ptr(), count.data_ptr(),
+                    r, extra=(mk._one_words_arg(spec),))
+    return acc
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,179 @@
+"""Measurements on the H100 that ``chip_smoke.py`` does not make, each
+printing one JSON line a result and the card's name and power limit.
+
+    python3 chip_probes.py round-blocks
+        K8's round kernel (``jac_madd_round_kernel`` at 12 words) with the
+        register bound it is built with (``kRoundBlocks`` = 4 blocks of 128
+        threads a multiprocessor) against a build with -DROUND_BLOCKS=3, in
+        turns (4, 3, 3, 4), at round 1 of a 2^20 G1 MSM on 2^20 distinct
+        bases (a signed table of 2^21 rows, 403 MB, far larger than L2) and
+        on 256 tiled bases, and of a 2^16 MSM on 2^16 distinct bases (the
+        size of ``chip_smoke.py``'s distinct-base MSM): device time,
+        checked against the plain version, and the host time of the whole
+        bucket phase (``msm.bucket_sums``).
+    python3 chip_probes.py host-turns OTHER_CHECKOUT
+        Host-bound paths timed on two checkouts in turns (OTHER, this one,
+        this one, OTHER), one process each: ``WnafContext.mul`` on 2^18
+        secp256k1 points, ``entry.scalar_mul`` on 2^16 Jubjub points, and
+        the 2^20 lockstep G1 MSM step by step, each through the checkout's
+        own ``chip_smoke.py`` functions and checked as they check it.
+
+Needs a CUDA device; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROUND_LOG = 20
+SMALL_LOG = 16  # chip_smoke.py's distinct-base MSM: 81,920 lanes, under two waves
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def round_blocks() -> int:
+    import chip_smoke as cs
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.curves.instances import bls12_381
+    from algebra_tpu_torch.kernels import build
+    from algebra_tpu_torch.ops import fixed_base, msm
+
+    device = torch.device("cuda", 0)
+    gpu = cs.nvidia_smi_line()
+    build.build_all()
+    variant = ("ROUND_BLOCKS=3",)
+    with build.variant("sw_kernels", 12, variant):
+        pass  # build it before anything is timed
+    regs = {"4": cs.ptxas_of("sw_kernels", 12, "jac_madd_round"),
+            "3": cs.ptxas_of("sw_kernels", 12, "jac_madd_round", variant)}
+    emit({"phase": "round_blocks_build", "ptxas_w12": regs, "gpu": gpu})
+
+    curve = bls12_381.g1(device)
+    rng, rng_host = np.random.default_rng(cs.SEED), random.Random(cs.SEED)
+    n = 1 << ROUND_LOG
+    # 2^20 distinct bases k_i G from random k_i (fixed-base windows of 8 bits)
+    ks = convert.from_reference(cs.random_scalars(n, rng), device)
+    table_g = fixed_base.window_table(curve, curve.generator(), 8, 256)
+    distinct = curve.to_affine(fixed_base.msm(curve, table_g, ks, 8))
+    del ks, table_g
+    _, aff256 = cs.g1_bases_256(curve, rng_host)
+    tiled = tuple(a.repeat(1, n // 256) if a.ndim == 2 else a.repeat(n // 256)
+                  for a in aff256)
+    sc = convert.from_reference(cs.random_scalars(n, rng), device)
+    small = 1 << SMALL_LOG
+    results = []
+    for name, log_n, bases in (("distinct", ROUND_LOG, distinct),
+                               ("tiled_256", ROUND_LOG, tiled),
+                               ("distinct", SMALL_LOG,
+                                tuple(a[..., :small].contiguous() for a in distinct))):
+        m = 1 << log_n
+        x, y, inf = bases
+        c, W = msm.plan_windows(255, msm.default_window_size(m), m, tree=False)
+        order_s, start, counts = msm.recode(sc[:, :m].contiguous(), inf, c, W)
+        table = msm.signed_table(curve, x, y)
+        for blocks in (4, 3, 3, 4):
+            with build.variant("sw_kernels", 12, () if blocks == 4 else variant):
+                k = cs.round_kernel_at(curve, table, order_s, start, counts)
+                msm.bucket_sums(curve, table, order_s, start, counts)  # warm
+                _, phase_ms = cs.wall_ms(
+                    lambda: msm.bucket_sums(curve, table, order_s, start, counts))
+            if k["mismatches"]:
+                raise AssertionError(f"round kernel at {blocks} blocks disagrees: {k}")
+            results.append({"bases": name, "log_n": log_n, "blocks": blocks,
+                            "round_ms": k["ms"],
+                            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                            "plain_ms": k["plain_ms"], "lanes": k["shape"][1],
+                            "lanes_adding": k["lanes_adding"], "table_rows": k["table_rows"],
+                            "mismatches": k["mismatches"], "bucket_phase_ms": phase_ms,
+                            "rounds": msm.stats["rounds_lockstep"] + msm.stats["rounds_tail"]
+                            + msm.stats["rounds_top"]})
+            emit(results[-1])
+        del order_s, start, counts, table
+    print(gpu, flush=True)
+    emit({"ok": True, "probe": "round-blocks", "results": results})
+    return 0
+
+
+def host_one(root: str) -> int:
+    """One turn of ``host-turns`` on the checkout at ``root``."""
+    root = os.path.abspath(root)
+    sys.path[0] = root
+    os.chdir(root)
+    import chip_smoke as cs
+    import algebra_tpu_torch
+    from algebra_tpu_torch.curves.instances import bls12_381, secp256k1
+    from algebra_tpu_torch.kernels import build
+
+    for mod in (cs, algebra_tpu_torch):
+        if not os.path.abspath(mod.__file__).startswith(root + os.sep):
+            raise AssertionError(f"{mod.__name__} came from {mod.__file__}, not {root}")
+    device = torch.device("cuda", 0)
+    build.build_all()
+    rng, rng_host = np.random.default_rng(cs.SEED), random.Random(cs.SEED)
+    secp = secp256k1.g1(device)
+    pts = cs.host_pool(secp, rng_host)
+    wnaf = cs.wnaf_at_scale(secp, pts, rng_host, device)
+    jub = cs.jubjub_at_scale(rng, rng_host, device)
+    g1 = bls12_381.g1(device)
+    _, aff256 = cs.g1_bases_256(g1, rng_host)
+    phases = cs.msm_phase_times(g1, aff256, cs.random_scalars(1 << 20, rng), device)
+    phases = phases[0] if isinstance(phases, tuple) else phases
+    keep = ("recode_ms", "table_ms", "rounds_ms", "reduction_ms", "fold_ms", "to_affine_ms")
+    emit({"root": root, "wnaf_ms": wnaf["ms"], "wnaf_ms_runs": wnaf["ms_runs"],
+          "jubjub_ms": jub["ms"], "jubjub_ms_runs": jub["ms_runs"],
+          "msm_2^20_steps": {k: phases[k] for k in keep if k in phases},
+          "msm_2^20_profiled_wall_ms": phases.get("profiled", {}).get("wall_ms"),
+          "msm_2^20_profiled_device_ms": phases.get("profiled", {}).get("device_ms")})
+    return 0
+
+
+def host_turns(other: str) -> int:
+    import chip_smoke as cs
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    gpu = cs.nvidia_smi_line()
+    turns = []
+    for root in (other, here, here, other):
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "host-one", root],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"the turn on {root} failed ({proc.returncode})")
+        turn = json.loads(proc.stdout.strip().splitlines()[-1])
+        turn.update(which="other" if root == other else "this", seconds=time.time() - t0)
+        turns.append(turn)
+        emit(turn)
+    print(gpu, flush=True)
+    emit({"ok": True, "probe": "host-turns", "turns": turns})
+    return 0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_probes: no CUDA device", file=sys.stderr)
+        return 1
+    what = sys.argv[1] if len(sys.argv) > 1 else ""
+    if what == "round-blocks":
+        return round_blocks()
+    if what == "host-turns" and len(sys.argv) == 3:
+        return host_turns(sys.argv[2])
+    if what == "host-one" and len(sys.argv) == 3:
+        return host_one(sys.argv[2])
+    print(__doc__, file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,10 +16,12 @@ at 2^24 must give back the factor a product was made from, through the
 blocked batched inversion — and checks the inversion on its own, (6) runs
 the short paths over the same kernels (Lagrange coefficients, long
 division, square roots), (7) holds the group-law kernels (Jacobian double,
-add, mixed add) against their plain versions on planted exceptional lanes
-and on real G1 points, (8) runs the G1 MSM — ``entry.g1_msm`` at 2^16,
-2^18 and 2^20 and ``msm.msm_chunks`` at 2^24 — against host oracles, step
-by step and under ``torch.profiler`` at 2^20, (9) the group law's other
+add, mixed add, and the mixed add as one lockstep round of the MSM)
+against their plain versions on planted exceptional lanes, on edge
+operands of the Montgomery product and on real G1 points, (8) runs the G1
+MSM — ``entry.g1_msm`` at 2^16, 2^18 and 2^20 and ``msm.msm_chunks`` at
+2^24 — against host oracles, step by step and under ``torch.profiler`` at
+2^20, with the round kernel at the operands of the MSM's rounds, (9) the group law's other
 paths (scalar multiplication, cofactor clearing, subgroup checks, the small
 MSM), (10) holds the affine tree's kernels (row pack, unpack, y negation,
 unit expansion; the halving level's denominator and completion) against
@@ -143,8 +145,8 @@ def profile_call(fn, families, top: int = 16) -> dict:
     short call go unrecorded): its wall time, the device time of its
     kernels (device events only: a CPU op's row repeats its kernels' time),
     the share of the wall time the device was busy, the ``top`` kernels by
-    device time, and the device time of each kernel family by whole name
-    (``pack_kernel`` is in ``unpack_kernel``)."""
+    device time, the launches of every kernel, and the device time of each
+    kernel family by whole name (``pack_kernel`` is in ``unpack_kernel``)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     steps = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
     with torch.profiler.profile(activities=acts, schedule=steps) as prof:
@@ -152,11 +154,12 @@ def profile_call(fn, families, top: int = 16) -> dict:
         prof.step()
         _, wall = wall_ms(fn)
         prof.step()
-    by_kernel = {}
+    by_kernel, launches = {}, {}
     for e in prof.key_averages():  # the step's own row repeats its kernels' time
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0 \
                 and not e.key.startswith("ProfilerStep"):
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
+            launches[e.key[:90]] = launches.get(e.key[:90], 0) + e.count
     busy_ms = sum(by_kernel.values())
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
     return {
@@ -164,6 +167,7 @@ def profile_call(fn, families, top: int = 16) -> dict:
         "device_ms": busy_ms if by_kernel else "not measured",
         "device_busy_share": busy_ms / wall if by_kernel else "not measured",
         "device_ms_by_kernel": {k[:90]: v for k, v in ranked},
+        "launches_by_kernel": launches,
         "kernel_device_ms": {
             name: sum(v for k, v in by_kernel.items() if re.search(rf"\b{name}_kernel<", k))
             for name in families},
@@ -233,6 +237,13 @@ def host_eval_mont(spec, t: torch.Tensor, z: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def product_edges(spec) -> list:
+    """Operands at the edges of a Montgomery product: 0, 1, p - 1, p - 2
+    and R mod p (one in Montgomery form)."""
+    p = spec.modulus
+    return [0, 1, p - 1, p - 2, spec.R % p]
+
+
 def check_mul_kernel(spec, rng, device):
     """K1 for one field: random and edge operands, a length that is not a
     multiple of the block, the one-element (stride-0) operand, a host
@@ -242,7 +253,7 @@ def check_mul_kernel(spec, rng, device):
     from algebra_tpu_torch.ops import mont_kernels as mk
 
     p, L = spec.modulus, spec.n_limbs
-    edge = [0, 1, p - 1, spec.R % p]
+    edge = product_edges(spec)
     ea = [x for x in edge for _ in edge]
     eb = [y for _ in edge for y in edge]
     n_rand = (1 << 16) + 37 - len(ea)
@@ -898,21 +909,47 @@ def sw_operands(spec, n: int, rng: np.random.Generator, device, planted: bool):
     return (x1, y1, z1), (x2, y2, z2), inf2
 
 
+def edge_sw_operands(spec, device):
+    """(P, Q, inf2) on 5^5 = 3125 lanes whose x1, y1, z1, x2, y2 run over
+    every combination of ``product_edges``; z2 is z1 moved one lane on,
+    inf2 set on every seventh lane.  Every product and square of K6-K8
+    then meets edge operands."""
+    import itertools
+
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.bigint import batch_int_to_limbs
+
+    cols = list(zip(*itertools.product(product_edges(spec), repeat=5)))
+    cols.append(cols[2][1:] + cols[2][:1])
+    x1, y1, z1, x2, y2, z2 = (convert.from_reference(batch_int_to_limbs(list(c), spec.n_limbs),
+                                                     device) for c in cols)
+    inf2 = torch.arange(len(cols[0]), device=device) % 7 == 0
+    return (x1, y1, z1), (x2, y2, z2), inf2
+
+
 def check_sw_kernels(spec, rng, device):
     """K6, K7 and K8 for one field against their plain versions on ragged n
-    with planted lanes, and the operand forms the MSM gives them: K8
-    in place with point-major rows for Q, K7 with a broadcast Q."""
+    with planted lanes, on every combination of product edge operands, and
+    the operand forms the MSM gives them: K8 in place with point-major rows
+    for Q, K7 with a broadcast Q."""
     from algebra_tpu_torch.ops import sw_kernels as swk
 
-    cases = []
-    for n in (1, 127, 4097, 65539):
-        P, Q, inf2 = sw_operands(spec, n, rng, device, planted=n > 96)
+    def compare(P, Q, inf2) -> dict:
         aff = (Q[0], Q[1], inf2)
         bad6 = tuple_mismatches(swk.double(spec, P), swk.double_plain(spec, *P))
         bad7 = tuple_mismatches(swk.add(spec, P, Q), swk.add_plain(spec, *P, *Q))
         bad8 = tuple_mismatches(swk.madd(spec, P, aff), swk.madd_plain(spec, *P, *aff))
-        cases.append({"n": n, "planted": n > 96, "double": bad6[0], "add": bad7[0],
-                      "madd": bad8[0], "max_abs_err": max(bad6[1], bad7[1], bad8[1])})
+        return {"double": bad6[0], "add": bad7[0], "madd": bad8[0],
+                "max_abs_err": max(bad6[1], bad7[1], bad8[1])}
+
+    cases = []
+    for n in (1, 127, 4097, 65539):
+        P, Q, inf2 = sw_operands(spec, n, rng, device, planted=n > 96)
+        cases.append({"n": n, "operands": "random", "planted": n > 96,
+                      **compare(P, Q, inf2)})
+    P, Q, inf2 = edge_sw_operands(spec, device)
+    cases.append({"n": int(inf2.numel()), "operands": "edges", "planted": False,
+                  **compare(P, Q, inf2)})
     # K8 in place, Q as strided views of point-major rows [n, 2L]
     L = spec.n_limbs
     P, Q, inf2 = sw_operands(spec, 4097, rng, device, planted=True)
@@ -929,6 +966,82 @@ def check_sw_kernels(spec, rng, device):
     return {"field": spec.name, "words": spec.n_words, "ragged": cases,
             "madd_in_place_point_major_rows": bad_rows[0],
             "add_broadcast_q": bad_bc[0]}
+
+
+ROUND_CASES = ("past", "zero_past", "zero_adds", "eq", "neg")
+
+
+def round_operands(spec, m: int, rng: np.random.Generator, device, planted: bool,
+                   n_pts: int = 4099, r: int = 3):
+    """Operands of K8's round kernel on m lanes: (acc [L, m] x3, table
+    [2 n_pts, 2L] of random rows (row n_pts + j holding -y_j), a flat order
+    of three windows of n_pts random rows, first, count, r).  A lane's run
+    starts anywhere in any window (as the drain's compacted lanes do) and
+    holds 0-8 points.  With ``planted``, lane k and the whole warp
+    32 (k + 1) .. 32 (k + 2) - 1 take case k of ``ROUND_CASES``: a run too
+    short for round r (Z1 != 0); the same with (X, Y, 0), X, Y != one; a
+    point to add with Z1 = 0; the row equal to the accumulator's affine
+    point (Z1 = one); and its negative."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.ops import mont
+
+    L = spec.n_limbs
+    one = mont.bconst(spec.one_mont_limbs, (1,), device)
+    x, y = (convert.from_reference(random_limbs(spec, n_pts, rng), device) for _ in range(2))
+    table = torch.cat([torch.cat([x.T, y.T], dim=1),
+                       torch.cat([x.T, mont.neg(spec, y).T], dim=1)]).contiguous()
+    as_t = lambda a: torch.from_numpy(a.astype(np.int64)).to(device)  # noqa: E731
+    order = as_t(rng.integers(0, 2 * n_pts, size=3 * n_pts))
+    count = rng.integers(0, 9, size=m)
+    first = rng.integers(0, 3, size=m) * n_pts + rng.integers(0, n_pts - 8, size=m)
+    X, Y, Z = (convert.from_reference(random_limbs(spec, m, rng), device) for _ in range(3))
+    if planted:
+        case = np.full(m, -1)
+        for k in range(len(ROUND_CASES)):
+            case[k] = k
+            case[32 * (k + 1): 32 * (k + 2)] = k
+        short = (case == 0) | (case == 1)
+        adds = case >= 2
+        count[short] = rng.integers(0, r + 1, size=int(short.sum()))
+        count[adds] = rng.integers(r + 1, 9, size=int(adds.sum()))
+        first_t = as_t(first)
+        rows = table[order[first_t + r]]
+        lanes = lambda k: torch.from_numpy(case == k).to(device)  # noqa: E731
+        Z = torch.where(lanes(1) | lanes(2), 0, Z)
+        same = lanes(3) | lanes(4)
+        X = torch.where(same, rows[:, :L].T, X)
+        Y = torch.where(lanes(3), rows[:, L:].T, Y)
+        Y = torch.where(lanes(4), mont.neg(spec, rows[:, L:].T), Y)
+        Z = torch.where(same, one, Z)
+    acc = tuple(c.contiguous() for c in (X, Y, Z))
+    return acc, table, order, as_t(first), as_t(count), r
+
+
+def check_round_kernel(spec, rng, device):
+    """K8's round kernel for one field against its plain version on ragged
+    m, with the planted lanes and whole warps of ``round_operands``, for
+    one round (``madd_round``) and for rounds 0-5 in a row
+    (``madd_rounds``)."""
+    from algebra_tpu_torch.ops import sw_kernels as swk
+
+    cases = []
+    for m in (1, 127, 4097, 65539):
+        acc, table, order, first, count, r = round_operands(spec, m, rng, device,
+                                                            planted=m > 191)
+        for rounds in ((r,), tuple(range(6))):
+            want = tuple(c.clone() for c in acc)
+            got = tuple(c.clone() for c in acc)
+            for rr in rounds:
+                swk.madd_round_plain(spec, want, table, order, first, count, rr)
+            if len(rounds) == 1:
+                swk.madd_round(spec, got, table, order, first, count, r)
+            else:
+                swk.madd_rounds(spec, got, table, order, first, count, 0, len(rounds))
+            bad = tuple_mismatches(got, want)
+            cases.append({"m": m, "rounds": list(rounds), "planted": m > 191,
+                          "mismatches": bad[0], "max_abs_err": bad[1]})
+    torch.cuda.synchronize()
+    return {"field": spec.name, "words": spec.n_words, "cases": cases}
 
 
 def sw_case_failures(case: dict) -> list:
@@ -983,7 +1096,8 @@ def sass_counts(words: int) -> dict:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            name = next((k for k in ("jac_double", "jac_add", "jac_madd") if k in line), None)
+            name = next((k for k in ("jac_madd_round", "jac_double", "jac_add", "jac_madd")
+                         if k in line), None)
             if name:
                 counts[name] = {"instructions": 0, "imad": 0}
             continue
@@ -995,7 +1109,26 @@ def sass_counts(words: int) -> dict:
                 counts[name]["imad"] += 1
                 forms = counts[name].setdefault("imad_by_form", {})
                 forms[op] = forms.get(op, 0) + 1
+    for c in counts.values():
+        c["instructions_per_imad"] = c["instructions"] / max(c["imad"], 1)
     return counts
+
+
+def ptxas_of(source: str, words: int, kernel: str, defines: tuple = ()) -> dict:
+    """Registers and spill bytes that ptxas reported for ``kernel`` (a
+    substring of the mangled name) in one library's build log (of the
+    variant built with ``defines``, if any)."""
+    from algebra_tpu_torch.kernels import build
+
+    out, inside = {}, False
+    for ln in build.build_log(source, words, defines).splitlines():
+        if "entry function" in ln:
+            inside = kernel in ln and (kernel != "jac_madd" or "jac_madd_round" not in ln)
+        elif inside and "spill" in ln and "spill" not in out:
+            out["spill"] = ln.strip()
+        elif inside and "registers" in ln:
+            out["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
 
 
 def sw_mads(spec, P, Q=None, inf2=None) -> int:
@@ -1033,12 +1166,15 @@ def sw_mads(spec, P, Q=None, inf2=None) -> int:
 
 
 def check_sw_main_shapes(device, rng, log_n: int, log_wide: int = 20):
-    """K8, K7 and K6 at the shapes the 2^log_n MSM launches them most often
-    (K8: one lockstep round over every (window, bucket), its affine operand
-    point-major gathered rows; K7: the inner step of the weighted
-    reduction; K6: the Horner fold's batch (), and [L, 2^20] where the
-    device sets the time), on random coordinates with every lane valid.
-    Against their plain versions, with times and data-counted bounds."""
+    """The general K8, K7 and K6 on random coordinates with every lane
+    valid, against their plain versions, with times and data-counted
+    bounds.  K7 and K6 at the shapes the 2^log_n MSM launches them most
+    often (K7: the inner step of the weighted reduction; K6: the Horner
+    fold's batch (), and [L, 2^20] where the device sets the time).  K8 at
+    the shape the lockstep round gave it before it had a kernel of its own
+    ([L, W B], Q point-major gathered rows): no path calls it so now, but
+    its earlier times were taken there (its path's shape is in
+    ``check_tree_main_shapes``)."""
     from algebra_tpu_torch.curves.instances import bls12_381
     from algebra_tpu_torch.ops import msm, sw_kernels as swk
 
@@ -1096,6 +1232,47 @@ def check_sw_main_shapes(device, rng, log_n: int, log_wide: int = 20):
         6 * L * 4, sw_mads(spec, P1))
     torch.cuda.synchronize()
     return out, {"c": c, "windows": W, "buckets": B, "block": G}
+
+
+def round_kernel_at(curve, table, order_s, start, counts) -> dict:
+    """K8's round kernel at the operands of a real lockstep MSM: every
+    (window, bucket) lane, the recoded order, the signed table.  Round 0
+    writes each bucket's first point into the empty accumulators (no
+    products); round 1 is the first that adds, and is what is measured:
+    against its plain version, in device time (launches queued behind a
+    spin kernel, the accumulators updated in place), with its bound from
+    the data: P read and written, the row, the order entry, first and
+    count for a lane that adds; count, Z1 (and P written where Z1 = 0) for
+    one that does not; the multiply-adds of the lanes that add."""
+    from algebra_tpu_torch.ops import msm, sw_kernels as swk
+
+    spec = curve.base.spec
+    L, cb = spec.n_limbs, 4 * spec.n_limbs  # bytes a coordinate
+    W, B = start.shape
+    n = order_s.shape[1]
+    order, first, count = msm.lane_runs(order_s, start, counts)
+    acc = tuple(a.reshape(L, -1).contiguous() for a in curve.zero((W, B)))
+    swk.madd_round(spec, acc, table, order, first, count, 0)
+    r = 1
+    want, plain_ms = wall_ms(lambda: swk.madd_round_plain(
+        spec, tuple(a.clone() for a in acc), table, order, first, count, r))
+    got = swk.madd_round(spec, tuple(a.clone() for a in acc), table, order, first, count, r)
+    bad = tuple_mismatches(got, want)
+    del want, got
+    adds = count > r
+    z_zero = (acc[2] == 0).all(dim=0) & ~adds
+    n_adds, n_zero = int(adds.sum().item()), int(z_zero.sum().item())
+    m = int(count.numel())
+    n_bytes = n_adds * (8 * cb + 24) + (m - n_adds) * (8 + cb) + n_zero * 3 * cb
+    x2, y2, inf2 = swk.round_operand(spec, table, order, first, count, r)
+    mads = sw_mads(spec, acc, (x2, y2), inf2)
+    del x2, y2, inf2
+    timed = tuple(a.clone() for a in acc)
+    ms = device_ms(lambda: swk.madd_round(spec, timed, table, order, first, count, r), 10)
+    return with_bound({"mismatches": bad[0], "max_abs_err": bad[1], "ms": ms,
+                       "plain_ms": plain_ms, "shape": [L, m], "round": r,
+                       "lanes_adding": n_adds, "n_points": n, "table_rows": int(table.shape[0])},
+                      n_bytes, mads)
 
 
 # ---------------------------------------------------------------------------
@@ -1179,25 +1356,30 @@ def run_msm_path(device, rng, rng_host, gpu):
                       "host_oracle": "equal"})
         del bases, res, sc, aff
     # the 2^20 MSM again, phase by phase
-    phases = msm_phase_times(curve, aff256, host_scalars[:, : 1 << MSM_LOGS[-1]], device)
-    distinct = run_distinct_bases(curve, rng, rng_host, device)
-    idle = [k for k in ("mont_mul", "jac_double", "jac_add", "jac_madd")
+    phases, round_k = msm_phase_times(curve, aff256, host_scalars[:, : 1 << MSM_LOGS[-1]],
+                                      device)
+    distinct, round_k[f"distinct_2^{MSM_DISTINCT}"] = run_distinct_bases(
+        curve, rng, rng_host, device)
+    idle = [k for k in ("mont_mul", "jac_double", "jac_add", "jac_madd_round")
             if main_counts[k] <= 0]
     if idle:
         raise AssertionError(f"the main MSM launched no {idle}: {main_counts}")
     torch.cuda.synchronize()
     return main_counts, {"phase": "msm_path", "curve": "bls12_381.G1",
                          "sizes": sizes, f"phases_2^{MSM_LOGS[-1]}": phases,
-                         f"distinct_bases_2^{MSM_DISTINCT}": distinct, "gpu": gpu}
+                         f"distinct_bases_2^{MSM_DISTINCT}": distinct, "gpu": gpu}, round_k
 
 
-def msm_phase_times(curve, aff256, sc_np, device) -> dict:
+def msm_phase_times(curve, aff256, sc_np, device):
     """The 2^20 MSM's steps one by one, each synchronised (host clock):
     recode (digits, sort, runs), the signed row table, the bucket rounds
-    (K8 and the plain-torch gathers around it), the weighted reduction
-    (K7, K6), the Horner fold (K6, K7), to_affine (K1); then the whole MSM
+    (K8's round kernel, one launch a round), the weighted reduction (K7,
+    K6), the Horner fold (K6, K7), to_affine (K1); the bucket phase once
+    under torch.profiler, with its launches by kernel (which must hold one
+    round kernel a round and no other kernel as often); then the whole MSM
     once more under torch.profiler: device time by kernel and the share of
-    the call's wall time the device was busy."""
+    the call's wall time the device was busy.  Returns (the steps, K8's
+    round kernel at this MSM's operands)."""
     from algebra_tpu_torch import convert
     from algebra_tpu_torch.ops import msm
 
@@ -1211,21 +1393,37 @@ def msm_phase_times(curve, aff256, sc_np, device) -> dict:
     table, out["table_ms"] = wall_ms(lambda: msm.signed_table(curve, x, y))
     buckets, out["rounds_ms"] = wall_ms(
         lambda: msm.bucket_sums(curve, table, order_s, start, counts))
+    rounds = (msm.stats["rounds_lockstep"] + msm.stats["rounds_tail"]
+              + msm.stats["rounds_top"])
     sums, out["reduction_ms"] = wall_ms(lambda: msm._weighted_reduce(curve, buckets))
     total, out["fold_ms"] = wall_ms(lambda: msm._horner_fold(curve, sums, c))
     _, out["to_affine_ms"] = wall_ms(lambda: curve.to_affine(total))
-    del order_s, start, counts, table, buckets, sums
+    del buckets, sums
+
+    bucket_prof = profile_call(lambda: msm.bucket_sums(curve, table, order_s, start, counts),
+                               ("jac_madd_round",), top=12)
+    by_count = bucket_prof["launches_by_kernel"]
+    n_round = sum(v for k, v in by_count.items() if "jac_madd_round_kernel" in k)
+    other = {k: v for k, v in by_count.items() if "jac_madd_round_kernel" not in k}
+    if n_round != rounds or max(other.values(), default=0) >= rounds // 2:
+        raise AssertionError(f"the bucket phase is not one launch a round: {rounds} rounds, "
+                             f"launches {by_count}")
+    out["bucket_phase_profiled"] = {**bucket_prof, "rounds": rounds}
+    round_k = round_kernel_at(curve, table, order_s, start, counts)
+    del order_s, start, counts, table
 
     out["profiled"] = profile_call(
         lambda: curve.to_affine(msm.msm(curve, (x, y, inf), sc)),
-        ("jac_madd", "jac_add", "jac_double", "mont_mul"), top=12)
-    return out
+        ("jac_madd_round", "jac_add", "jac_double", "mont_mul"), top=12)
+    return out, round_k
 
 
-def run_distinct_bases(curve, rng, rng_host, device) -> dict:
+def run_distinct_bases(curve, rng, rng_host, device):
     """2^MSM_DISTINCT distinct bases P_i = k_i G, k_i = k0 + i d, made by
-    host additions; the MSM against (sum s_i k_i mod r) G."""
-    from algebra_tpu_torch import entry
+    host additions; the MSM against (sum s_i k_i mod r) G.  Returns (its
+    line, K8's round kernel at its operands)."""
+    from algebra_tpu_torch import convert, entry
+    from algebra_tpu_torch.ops import msm
 
     n = 1 << MSM_DISTINCT
     r = curve.scalar_modulus
@@ -1242,7 +1440,13 @@ def run_distinct_bases(curve, rng, rng_host, device) -> dict:
     k = sum(s * ((k0 + i * d) % r) for i, s in enumerate(s_ints)) % r
     if curve.to_host(res) != curve.host_mul(g, k):
         raise AssertionError("G1 MSM on distinct bases differs from (sum s_i k_i) G")
-    return {"n": n, "ms": ms, "host_oracle": "equal"}
+    # K8's round kernel at this MSM's operands: 2^17 distinct table rows
+    sc = convert.from_reference(sc_np, device)
+    c, W = msm.plan_windows(255, msm.default_window_size(n), n, tree=False)
+    order_s, start, counts = msm.recode(sc, bases[2], c, W)
+    round_k = round_kernel_at(curve, msm.signed_table(curve, bases[0], bases[1]), order_s,
+                              start, counts)
+    return {"n": n, "ms": ms, "host_oracle": "equal"}, round_k
 
 
 def run_small_group_paths(device, rng, rng_host, gpu):
@@ -1486,22 +1690,29 @@ def row_case_failures(cases) -> list:
 
 
 def capture_first_calls(run):
-    """Run ``run()`` with the tree's row and level wrappers recording the
-    operands of their first call (copies), for timing them at the shapes
-    the path gives them.  Returns (run's result, {name: operands})."""
+    """Run ``run()`` with the tree's row, level and mixed-add wrappers
+    recording the operands of their first call (copies), for timing them at
+    the shapes the path gives them; for ``madd`` the first call that adds,
+    with an accumulator not all infinity (the finish's round 0 only copies
+    each bucket's first row).  Returns (run's result, {name: operands})."""
     from algebra_tpu_torch.ops import rows, sw_kernels as swk
+
+    def copy(a):
+        if isinstance(a, tuple):
+            return tuple(copy(t) for t in a)
+        return a.clone() if isinstance(a, torch.Tensor) else a
 
     seen, saved = {}, []
     for mod, name in ((rows, "pack"), (rows, "negate_y"), (rows, "expand_units"),
-                      (rows, "unpack"), (swk, "affr_denom"), (swk, "affr_post")):
+                      (rows, "unpack"), (swk, "affr_denom"), (swk, "affr_post"),
+                      (swk, "madd")):
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
 
-        def record(*args, _fn=fn, _name=name):
-            if _name not in seen:
-                seen[_name] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                                    for a in args)
-            return _fn(*args)
+        def record(*args, _fn=fn, _name=name, **kw):
+            if _name not in seen and (_name != "madd" or bool(args[1][2].any())):
+                seen[_name] = copy(args)
+            return _fn(*args, **kw)
         setattr(mod, name, record)
     try:
         out = run()
@@ -1512,13 +1723,28 @@ def capture_first_calls(run):
 
 
 def check_tree_main_shapes(seen: dict) -> dict:
-    """K11-K16 on the operands the 2^20 tree MSM gave their first call,
-    against their plain versions, with device times, the plain versions'
-    times, one PyTorch call's time where one computes the same function,
-    and data-counted bounds."""
+    """K11-K16 on the operands the 2^20 tree MSM gave their first call, and
+    the general K8 on those of the first finishing round that adds (Q the
+    slot rows K14 unpacked, limb-major; its infinity mask ORed with
+    counts <= r), against their plain versions, with device times, the
+    plain versions' times, one PyTorch call's time where one computes the
+    same function, and data-counted bounds."""
     from algebra_tpu_torch.ops import rows, sw_kernels as swk
 
     out = {}
+    spec, P, aff = seen["madd"]
+    L, inf2 = spec.n_limbs, aff[2]
+    m = inf2.numel()
+    want, plain_ms = wall_ms(lambda: swk.madd_plain(spec, *P, *aff))
+    bad = tuple_mismatches(swk.madd(spec, P, aff), want)
+    del want
+    out["jac_madd"] = with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: swk.madd(spec, P, aff), 10), "library_ms": None,
+         "library_call": "none: no PyTorch call does field arithmetic on curve points",
+         "shape": [L, *inf2.shape], "lanes_adding": int((~inf2).sum().item())},
+        m * (8 * L * 4 + 1), sw_mads(spec, P, aff[:2], inf2))
+    del P, aff
     spec, x, y, inf = seen["pack"]
     L, RW, n = spec.n_limbs, rows.row_width(spec), x.shape[1]
     pad = x.new_zeros((RW - 2 * L - 1, n))
@@ -2250,13 +2476,15 @@ def main() -> int:
         raise AssertionError(f"kernel disagrees at the main shape: {k2} {k3} {k4}")
 
     t0 = time.time()
-    sw_cases = [check_sw_kernels(s, rng, device)
-                for s in (full_width, secp, bls12_381.fq_spec, mnt4_753.fq_spec)]
+    sw_specs = (full_width, secp, bls12_381.fq_spec, mnt4_753.fq_spec)
+    sw_cases = [check_sw_kernels(s, rng, device) for s in sw_specs]
+    round_cases = [check_round_kernel(s, rng, device) for s in sw_specs]
     on_curve = check_sw_on_curve(device, rng_host)
-    emit({"phase": "sw_kernel_cases", "cases": sw_cases, "g1_points": on_curve,
-          "sass": {f"w{w}": sass_counts(w) for w in build.WORD_COUNTS},
-          "seconds": time.time() - t0, "gpu": gpu})
+    sass = {f"w{w}": sass_counts(w) for w in build.WORD_COUNTS}
+    emit({"phase": "sw_kernel_cases", "cases": sw_cases, "round_cases": round_cases,
+          "g1_points": on_curve, "sass": sass, "seconds": time.time() - t0, "gpu": gpu})
     failed = [c for case in sw_cases for c in sw_case_failures(case)]
+    failed += [c for case in round_cases for c in case["cases"] if c["mismatches"]]
     if failed or on_curve["host_oracle_mismatches"]:
         raise AssertionError(f"group-law kernel disagrees: {failed} {on_curve}")
     t0 = time.time()
@@ -2300,8 +2528,14 @@ def main() -> int:
     emit(run_small_inverse_paths(device, rng, gpu))
     t0 = time.time()
     with bucket_path(False):
-        msm_counts, msm_line = run_msm_path(device, rng, rng_host, gpu)
-    emit({**msm_line, "kernel_shapes": msm_shape, "seconds": time.time() - t0})
+        msm_counts, msm_line, round_main = run_msm_path(device, rng, rng_host, gpu)
+    emit({**msm_line, "kernel_shapes": msm_shape, "round_kernel": round_main,
+          "seconds": time.time() - t0})
+    bad = [k for k in (round_main, round_main[f"distinct_2^{MSM_DISTINCT}"])
+           if k["mismatches"]]
+    if bad:
+        raise AssertionError(f"K8's round kernel disagrees at the MSM's operands: {bad}")
+    fq_words = bls12_381.fq_spec.n_words
     t0 = time.time()
     emit({**run_small_group_paths(device, rng, rng_host, gpu), "seconds": time.time() - t0})
     t0 = time.time()
@@ -2310,14 +2544,19 @@ def main() -> int:
     bad = {k: v for k, v in tree_main.items() if v["mismatches"]}
     if bad:
         raise AssertionError(f"tree kernel disagrees at the main shape: {bad}")
+    tree_main["jac_madd"]["at_lockstep_round_shape_before"] = sw_main["jac_madd"]
+    for name, k in (("jac_madd_round", round_main), ("jac_madd", tree_main["jac_madd"])):
+        k.update(ptxas_of("sw_kernels", fq_words, name))
+        k["instructions_per_imad"] = sass[f"w{fq_words}"][name]["instructions_per_imad"]
     t0 = time.time()
     scalar_counts, scalar_line, aff_main = run_scalar_mul_path(device, rng, rng_host, gpu)
     emit({**scalar_line, "seconds": time.time() - t0})
 
     # launches: K1 and K5 as the product path counted them, K2-K4 as the
-    # division path did (which also ran K1 and K5: see its own line), K6-K8
-    # as the 2^20 G1 MSM did on the lockstep path, K11-K16 as it did through
-    # the affine tree (which also ran K2-K4 and K6-K8: see its own line),
+    # division path did (which also ran K1 and K5: see its own line), K6,
+    # K7 and K8's round kernel as the 2^20 G1 MSM did on the lockstep path,
+    # K11-K16 and the general K8 as it did through the affine tree (which
+    # also ran K2-K4, K6 and K7: see its own line),
     # K9/K10 as one 2^20 secp256k1 entry.batch_affine_add without masks did
     # (K2-K4 too; the scalar-mul path's line has each call's counts)
     ntt_src = {"route": "cuda", "source": "algebra_tpu_torch/csrc/mont_kernels.cu",
@@ -2335,7 +2574,9 @@ def main() -> int:
          sw_main["jac_double"], sw_src),
         ("jac_add", "algebra_tpu/ops/sw_pallas.py:120", msm_counts, sw_main["jac_add"],
          sw_src),
-        ("jac_madd", "algebra_tpu/ops/sw_pallas.py:56", msm_counts, sw_main["jac_madd"],
+        ("jac_madd_round", "algebra_tpu/ops/sw_pallas.py:56", msm_counts, round_main,
+         sw_src),
+        ("jac_madd", "algebra_tpu/ops/sw_pallas.py:56", tree_counts, tree_main["jac_madd"],
          sw_src),
         ("aff_denom", "algebra_tpu/ops/sw_pallas.py:199", scalar_counts,
          aff_main["aff_denom"], sw_src),
