@@ -15,7 +15,9 @@ default_device: str = "cuda"
 # Smallest batch that ``PrimeField.inverse`` sends through the blocked
 # batched inversion (``ops/mont.batch_inverse``).  A single element, such as
 # a leading coefficient, has nothing to share the one ladder with and takes
-# ``ops/mont.inv``.
+# ``ops/mont.inv`` on the CPU; on the card it takes the blocked inversion
+# all the same, which for one element is K3's ladder alone, one launch
+# against ~490 of ``mont.inv``'s products.
 inverse_min_batch: int = 2
 
 # MSM bucket phase.  False: the lockstep Jacobian mixed-add rounds (kernel

@@ -68,8 +68,10 @@ class PrimeField(Field):
     def inverse(self, a):
         """Inverse; 0 -> 0.  A batch goes through the blocked batched
         inversion (about three products an element), a single element
-        through a Fermat ladder.  Both give the unique canonical inverse."""
-        if a[0].numel() >= config.inverse_min_batch:
+        through a Fermat ladder: on the card K3's, one launch (the blocked
+        inversion of one element is its ladder alone), on the CPU
+        ``mont.inv``'s.  All give the unique canonical inverse."""
+        if a[0].numel() >= config.inverse_min_batch or a.device.type == "cuda":
             return mont.batch_inverse(self.spec, a)
         return mont.inv(self.spec, a)
 

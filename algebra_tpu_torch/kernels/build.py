@@ -24,8 +24,9 @@ from .. import config
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 # one library each, for each word count
-KERNEL_SOURCES = ("mont_kernels", "inverse_kernels", "sw_kernels", "rows_kernels")
-_HEADERS = ("mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh")
+KERNEL_SOURCES = ("mont_kernels", "inverse_kernels", "sw_kernels", "rows_kernels",
+                  "msm_reduce_kernels")
+_HEADERS = ("mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh", "msm_reduce.cuh")
 WORD_COUNTS = (8, 12, 24)
 
 _libs: dict[tuple[str, int], ctypes.CDLL] = {}
@@ -153,6 +154,11 @@ def _signatures() -> dict[str, dict[str, list]]:
             "affr_post_launch": [vp, vp, vp, vp, sz, words_p, u32, words_p, ci, vp],
             "aff_denom_launch": aff_in + [vp, sz, words_p, u32, words_p, vp],
             "aff_post_launch": aff_in + [vp, vp, vp, vp, sz, words_p, u32, words_p, ci, vp],
+        },
+        "msm_reduce_kernels": {
+            "msm_words": [],
+            "bucket_reduce_inner_launch": [vp] * 9 + [sz, ci, words_p, u32, words_p, vp],
+            "reduce_fold_launch": [vp] * 10 + [ci] * 5 + [words_p, u32, words_p, vp],
         },
         "rows_kernels": {
             "rows_words": [],

@@ -78,12 +78,12 @@ from ..bigint import LIMB_BITS, LIMB_MASK
 from ..fields.spec import FieldSpec
 
 # Number of kernel launches, by kernel, for this module's kernels, the
-# group-law and affine-addition kernels of ``ops/sw_kernels.py`` and the
-# row kernels of ``ops/rows.py``.  A wrapper adds one where it launches its
-# kernel and nowhere else.
+# group-law, affine-addition and MSM-tail kernels of ``ops/sw_kernels.py``
+# and the row kernels of ``ops/rows.py``.  A wrapper adds one where it
+# launches its kernel and nowhere else.
 launches = {"mont_mul": 0, "butterfly": 0, "inv_prefix": 0, "inv_fermat": 0,
             "inv_backward": 0, "jac_double": 0, "jac_add": 0, "jac_madd": 0,
-            "jac_madd_round": 0,
+            "jac_madd_round": 0, "bucket_reduce_inner": 0, "reduce_fold": 0,
             "aff_denom": 0, "aff_post": 0, "affr_denom": 0, "affr_post": 0, "pack": 0, "unpack": 0,
             "negate_y": 0, "expand_units": 0}
 

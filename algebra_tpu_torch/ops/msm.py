@@ -16,8 +16,11 @@ Counterpart of the JAX package's ``ops/msm.py``, lockstep half (its
     K-wide batch (``_drain_bucket_tail``), and the top window, whose digits
     crowd into few buckets, finishes alone.
   * **Weighted bucket reduction** sum_k (k+1) S_k as a blocked double
-    suffix scan (``_weighted_tree_reduce``: kernels K7 and K6), and the
-    **Horner fold** over windows with c doublings each (K6, K7).
+    suffix scan and the **Horner fold** over windows with c doublings
+    each, in two launches: the inner scan (``_weighted_reduce``,
+    ``sw_kernels.bucket_reduce``), then the outer scan and the fold
+    (``_horner_fold``, ``sw_kernels.reduce_fold``), each add and doubling
+    the reference's (K7, K6) in its order.
 
 Where the reference gathers the rows, negates y and selects by the digit's
 sign in every round, the port folds the sign into the table: one table of
@@ -335,8 +338,7 @@ def msm(curve, bases_aff, scalars: torch.Tensor, c: int | None = None,
         order_s, start, counts = recode(scalars, inf, c, num_windows)
         buckets = bucket_sums(curve, signed_table(curve, x, y), order_s, start, counts)
         del order_s, start, counts
-    window_sums = _weighted_reduce(curve, buckets)  # [W]
-    return _horner_fold(curve, window_sums, c)
+    return _horner_fold(curve, _weighted_reduce(curve, buckets), c)
 
 
 # --------------------------------------------------------------------------
@@ -577,51 +579,40 @@ def _drain_slot_tail(curve, acc, V, start, counts_f, mk: int, r0: int, r1: int, 
 
 
 def _weighted_reduce(curve, P):
-    """Weighted bucket reduction entry point (the blocked double scan)."""
-    return _weighted_tree_reduce(curve, P)
+    """The weighted bucket reduction's first half, its inner scan, over
+    [W, B] buckets (B a power of two): returns (T, innerW, G), what
+    ``_horner_fold`` takes.
 
-
-def _horner_fold(curve, window_sums, c: int):
-    """Horner fold over the windows, most significant first: c doublings
-    and one addition a window, at batch ()."""
-    total = curve.zero(())
-    for w in range(window_sums[0].shape[1] - 1, -1, -1):
-        for _ in range(c):
-            total = curve.double(total)
-        total = curve.add(total, curve.index_point(window_sums, w))
-    return total
-
-
-def _weighted_tree_reduce(curve, P):
-    """sum_k (k+1) * S_k along the last batch axis of [W, B] buckets (B a
-    power of two), as a blocked double suffix scan.
-
-    With k = b*G + i (blocks of G ~ sqrt(B) buckets),
+    sum_k (k+1) S_k is a blocked double suffix scan.  With k = b*G + i
+    (blocks of G ~ sqrt(B) buckets),
         sum_k (k+1) S_k = sum_b innerW_b + G * sum_b b * T_b,
     T_b the plain sum of block b and innerW_b its (i+1)-weighted sum.  The
     inner scan (i descending, 2 adds a step on [W, B/G] lanes) gives T and
     innerW for every block at once; the outer scan (b descending, 3 adds a
-    step on [W] lanes) sums b*T_b and innerW_b; log2(G) doublings apply G.
-    ~2 W B lane-adds in all.  Returns the [W] window sums."""
+    step on [W] lanes) sums b*T_b and innerW_b, and log2(G) doublings apply
+    G (``_horner_fold``).  ~2 W B lane-adds in all, in the reference's
+    order step for step.  Where ``curve.add`` runs kernels, the inner scan
+    is one launch (``sw_kernels.bucket_reduce``); any other curve runs the
+    loop over its own law.  With one bucket a window there is nothing to
+    reduce: T is the window sums and innerW None."""
     L, W, B = P[0].shape
     if B == 1:
-        return curve.index_point(P, (slice(None), 0))
-    G = min(B, 1 << (((B - 1).bit_length() + 1) // 2))  # ~sqrt(B), a power of 2
-    nb = B // G
-    Pr = tuple(a.reshape(L, W, nb, G) for a in P)
-    accT = accW = curve.zero((W, nb))
-    for i in range(G - 1, -1, -1):
-        accT = curve.add(accT, tuple(a[..., i] for a in Pr))  # suffix sum in the block
-        accW = curve.add(accW, accT)  # sum of suffixes = (i+1)-weighted
-    T, innerW = accT, accW
-    accT = accB = accI = curve.zero((W,))
-    for b in range(nb - 1, -1, -1):
-        accB = curve.add(accB, accT)  # += strictly later suffix -> b * T_b
-        accT = curve.add(accT, tuple(a[..., b] for a in T))
-        accI = curve.add(accI, tuple(a[..., b] for a in innerW))
-    for _ in range(G.bit_length() - 1):  # * G
-        accB = curve.double(accB)
-    return curve.add(accI, accB)
+        return curve.index_point(P, (slice(None), 0)), None, 1
+    G = sw_kernels.reduce_block(B)
+    if curve._kernels:
+        return (*sw_kernels.bucket_reduce(curve.base.spec, P), G)
+    return (*sw_kernels.inner_scan(curve, P, G), G)
+
+
+def _horner_fold(curve, partial, c: int):
+    """The reduction's outer scan, then the Horner fold over the windows,
+    most significant first: c doublings and one addition a window, at
+    batch ().  ``partial``: ``_weighted_reduce``'s (T, innerW, G).  Where
+    ``curve.add`` runs kernels, one launch (``sw_kernels.reduce_fold``)."""
+    T, innerW, G = partial
+    if curve._kernels:
+        return sw_kernels.reduce_fold(curve.base.spec, T, innerW, G, c)
+    return sw_kernels.outer_fold(curve, T, innerW, G, c)
 
 
 def scan_sum(curve, P, axis: int = 0):

@@ -25,6 +25,23 @@ prime field:
     selects in jnp around ``_madd_kernel``), so a round is one launch;
     ``madd_rounds`` runs consecutive rounds with one operand check.
 
+K7 and K6 have one more kernel each, for the MSM's tail
+(``csrc/msm_reduce_kernels.cu``), which the reference runs as one call of
+``_add_kernel`` or ``_double_kernel`` (``sw_pallas.py:120``, :111) a step,
+~1,180 at 2^20:
+
+``bucket_reduce_inner``  (wrapper ``bucket_reduce``)
+    The weighted bucket reduction's inner scan, G steps of two adds on every
+    (window, block) lane, in one launch: a pair of threads a lane, accT and
+    accW one step apart, in registers.
+``reduce_fold``  (wrapper ``reduce_fold``)
+    Its outer scan (three threads a window), log2(G) doublings, and the
+    Horner fold (one thread), in one launch of one block.
+
+Their plain versions are the reference's loops (``inner_scan``,
+``outer_fold``) over ``add_plain`` and ``double_plain``; the MSM runs the
+same loops over a curve's own law where it has no kernels.
+
 Four more add affine points by the chord/tangent law around a batched
 inversion (a prime field, any a), two on coordinate arrays (wrapper
 ``affine_add``, behind ``SWCurve.affine_add``) and two on the packed rows of
@@ -61,8 +78,9 @@ kernels' plain versions (``mont_kernels.mul_plain``, ``add_plain``,
 ``sub_plain``) in the kernels' formulas and select like the reference,
 and run on any device.  Launch counts are kept in ``mont_kernels.launches``
 beside the field kernels' (``jac_double``, ``jac_add``, ``jac_madd``,
-``jac_madd_round``, ``aff_denom``, ``aff_post``, ``affr_denom``, ``affr_post``), so one
-``reset_launches()`` clears them all.
+``jac_madd_round``, ``bucket_reduce_inner``, ``reduce_fold``, ``aff_denom``,
+``aff_post``, ``affr_denom``, ``affr_post``), so one ``reset_launches()``
+clears them all.
 """
 
 from __future__ import annotations
@@ -260,12 +278,13 @@ def store(res, out):
     return tuple(out)
 
 
-def _launch(name: str, spec: FieldSpec, device, *args, extra=()) -> None:
-    """Launch ``name``: its operands, then the field's modulus and inv32,
-    then ``extra`` constants, then the stream."""
+def _launch(name: str, spec: FieldSpec, device, *args, extra=(),
+            source: str = "sw_kernels") -> None:
+    """Launch ``name`` of ``source``'s library: its operands, then the
+    field's modulus and inv32, then ``extra`` constants, then the stream."""
     from ..kernels import build
 
-    lib = build.library("sw_kernels", spec.n_words)
+    lib = build.library(source, spec.n_words)
     with torch.cuda.device(device):
         code = getattr(lib, f"{name}_launch")(
             *args, mk._p_words_arg(spec), spec.inv32, *extra,
@@ -668,3 +687,150 @@ def affine_add_rows(spec: FieldSpec, a_mont, V: torch.Tensor, valid,
     pack: K11, the inversion (K2-K4), K12."""
     den = affr_denom(spec, V, valid)
     return affr_post(spec, a_mont, V, valid, inv_fn(den))
+
+
+# --------------------------------------------------------------------------
+# the MSM's tail: the weighted bucket reduction and the Horner fold (the
+# general K7/K6 steps, kept in registers for a whole scan)
+# --------------------------------------------------------------------------
+
+
+def reduce_block(B: int) -> int:
+    """G ~ sqrt(B), a power of two: the block of the weighted reduction's
+    double scan over B buckets a window."""
+    return min(B, 1 << (((B - 1).bit_length() + 1) // 2))
+
+
+class PlainLaw:
+    """The plain versions' group law (``add_plain``, ``double_plain``) on
+    one device, with ``SWCurve``'s ``add``, ``double`` and ``zero``: what
+    ``inner_scan`` and ``outer_fold`` run on for the plain versions."""
+
+    def __init__(self, spec: FieldSpec, device):
+        self.spec, self.device = spec, torch.device(device)
+
+    def add(self, P, Q):
+        return add_plain(self.spec, *P, *Q)
+
+    def double(self, P):
+        return double_plain(self.spec, *P)
+
+    def zero(self, batch_shape=()):
+        shape = (self.spec.n_limbs,) + tuple(batch_shape)
+        one = mk._one_mont(self.spec, torch.empty(0, dtype=torch.int32, device=self.device))
+        one = one.reshape((-1,) + (1,) * len(batch_shape)).expand(shape)
+        return one, one, torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+
+def inner_scan(law, P, G: int):
+    """The weighted reduction's inner scan over [L, W, B] buckets, block
+    G: for i = G-1 ... 0, accT += P[b G + i], accW += accT on every
+    (window, block) lane.  Returns (T, innerW), [L, W, B/G] each: block
+    b's plain sum and its (i+1)-weighted sum.  ``law``: the group law
+    (an ``SWCurve`` or a ``PlainLaw``)."""
+    L, W, B = P[0].shape
+    nb = B // G
+    Pr = tuple(a.reshape(L, W, nb, G) for a in P)
+    accT = accW = law.zero((W, nb))
+    for i in range(G - 1, -1, -1):
+        accT = law.add(accT, tuple(a[..., i] for a in Pr))  # suffix sum in the block
+        accW = law.add(accW, accT)  # sum of suffixes = (i+1)-weighted
+    return accT, accW
+
+
+def outer_fold(law, T, innerW, G: int, c: int):
+    """The weighted reduction's outer scan, then the Horner fold: for
+    b = nb-1 ... 0 on every window, accB += accT (strictly later suffix:
+    b T_b in all), accT += T[b], accI += innerW[b]; accB doubled log2(G)
+    times, S_w = accI + accB; then from the top window down, c doublings
+    and + S_w.  T, innerW: [L, W, nb] (``inner_scan``); with innerW None,
+    T holds the window sums [L, W] themselves (one bucket a window).
+    Returns the point, batch ()."""
+    if innerW is None:
+        sums = T
+    else:
+        W, nb = T[0].shape[1:]
+        accT = accB = accI = law.zero((W,))
+        for b in range(nb - 1, -1, -1):
+            accB = law.add(accB, accT)
+            accT = law.add(accT, tuple(a[..., b] for a in T))
+            accI = law.add(accI, tuple(a[..., b] for a in innerW))
+        for _ in range(G.bit_length() - 1):  # * G
+            accB = law.double(accB)
+        sums = law.add(accI, accB)
+    total = law.zero(())
+    for w in range(sums[0].shape[1] - 1, -1, -1):
+        for _ in range(c):
+            total = law.double(total)
+        total = law.add(total, tuple(a[:, w] for a in sums))
+    return total
+
+
+def bucket_reduce_plain(spec: FieldSpec, P):
+    """``bucket_reduce`` on the plain versions (any device)."""
+    return inner_scan(PlainLaw(spec, P[0].device), P, reduce_block(P[0].shape[2]))
+
+
+def reduce_fold_plain(spec: FieldSpec, T, innerW, G: int, c: int):
+    """``reduce_fold`` on the plain versions (any device)."""
+    return outer_fold(PlainLaw(spec, T[0].device), T, innerW, G, c)
+
+
+def _check_points(spec: FieldSpec, name: str, P, ndim: int) -> torch.device:
+    device = mk._check_elems(spec, *P)
+    if len(P) != 3 or len({tuple(a.shape) for a in P}) != 1 or P[0].ndim != ndim:
+        raise ValueError(f"{name} must be three int32 coordinates of one "
+                         f"[{spec.n_limbs}{', ...' * (ndim - 1)}] shape")
+    return device
+
+
+def bucket_reduce(spec: FieldSpec, P):
+    """The weighted reduction's inner scan (``inner_scan``) of the buckets
+    P, three int32 [L, W, B] coordinates with B >= 2 a power of two, in one
+    launch of ``bucket_reduce_inner`` (csrc/msm_reduce_kernels.cu): a pair
+    of threads a (window, block) lane, accT and accW one step apart in
+    registers.  Returns (T, innerW), three [L, W, B/G] coordinates each,
+    G = ``reduce_block(B)``."""
+    device = _check_points(spec, "P", P, 3)
+    L, W, B = P[0].shape
+    if B < 2 or B & (B - 1):
+        raise ValueError(f"the buckets a window must be a power of two >= 2, not {B}")
+    if device.type == "cpu":
+        return bucket_reduce_plain(spec, P)
+    G = reduce_block(B)
+    nb = B // G
+    P = tuple(a.contiguous() for a in P)
+    out = torch.empty((6, L, W, nb), dtype=torch.int32, device=device)
+    if W:
+        _launch("bucket_reduce_inner", spec, device, *(a.data_ptr() for a in P),
+                *(o.data_ptr() for o in out), W * nb, G,
+                extra=(mk._one_words_arg(spec),), source="msm_reduce_kernels")
+    return tuple(out[:3]), tuple(out[3:])
+
+
+def reduce_fold(spec: FieldSpec, T, innerW, G: int, c: int):
+    """The weighted reduction's outer scan and the Horner fold
+    (``outer_fold``) in one launch of ``reduce_fold`` (one block: three
+    threads a window for the outer scan, then one thread for the fold).
+    T, innerW: three int32 [L, W, nb] coordinates each (``bucket_reduce``),
+    G the block, c the window size; with innerW None, T holds the window
+    sums [L, W].  Returns the point, three [L]."""
+    direct = innerW is None
+    device = _check_points(spec, "T", T, 2 if direct else 3)
+    if not direct and (_check_points(spec, "innerW", innerW, 3) != device
+                       or innerW[0].shape != T[0].shape):
+        raise ValueError("innerW must match T in shape and device")
+    if G < 1 or G & (G - 1) or c < 0:
+        raise ValueError(f"G must be a power of two and c >= 0, not {G}, {c}")
+    if device.type == "cpu":
+        return reduce_fold_plain(spec, T, innerW, G, c)
+    L, W = T[0].shape[:2]
+    nb = 1 if direct else T[0].shape[2]
+    T = tuple(a.contiguous() for a in T)
+    iw = T if direct else tuple(a.contiguous() for a in innerW)
+    sums = torch.empty((3, L, W), dtype=torch.int32, device=device)
+    out = torch.empty((3, L), dtype=torch.int32, device=device)
+    _launch("reduce_fold", spec, device, *(a.data_ptr() for a in (*T, *iw)),
+            sums.data_ptr(), *(o.data_ptr() for o in out), W, nb, G.bit_length() - 1, c,
+            int(direct), extra=(mk._one_words_arg(spec),), source="msm_reduce_kernels")
+    return tuple(out)

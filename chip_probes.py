@@ -15,8 +15,10 @@ printing one JSON line a result and the card's name and power limit.
         Host-bound paths timed on two checkouts in turns (OTHER, this one,
         this one, OTHER), one process each: ``WnafContext.mul`` on 2^18
         secp256k1 points, ``entry.scalar_mul`` on 2^16 Jubjub points, and
-        the 2^20 lockstep G1 MSM step by step, each through the checkout's
-        own ``chip_smoke.py`` functions and checked as they check it.
+        the 2^20 lockstep G1 MSM step by step (with the weighted reduction
+        and the Horner fold summed, since a checkout may split the work
+        between them differently), each through the checkout's own
+        ``chip_smoke.py`` functions and checked as they check it.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -129,9 +131,14 @@ def host_one(root: str) -> int:
     phases = cs.msm_phase_times(g1, aff256, cs.random_scalars(1 << 20, rng), device)
     phases = phases[0] if isinstance(phases, tuple) else phases
     keep = ("recode_ms", "table_ms", "rounds_ms", "reduction_ms", "fold_ms", "to_affine_ms")
+    steps = {k: phases[k] for k in keep if k in phases}
+    steps["reduction_fold_ms"] = steps["reduction_ms"] + steps["fold_ms"]
     emit({"root": root, "wnaf_ms": wnaf["ms"], "wnaf_ms_runs": wnaf["ms_runs"],
           "jubjub_ms": jub["ms"], "jubjub_ms_runs": jub["ms_runs"],
-          "msm_2^20_steps": {k: phases[k] for k in keep if k in phases},
+          "msm_2^20_steps": steps,
+          "msm_2^20_reduction_fold_launches": phases.get("reduction_fold_launches"),
+          "msm_2^20_to_affine_launches": phases.get("to_affine_launches"),
+          "msm_2^20_profiled_busy_share": phases.get("profiled", {}).get("device_busy_share"),
           "msm_2^20_profiled_wall_ms": phases.get("profiled", {}).get("wall_ms"),
           "msm_2^20_profiled_device_ms": phases.get("profiled", {}).get("device_ms")})
     return 0

@@ -16,12 +16,15 @@ at 2^24 must give back the factor a product was made from, through the
 blocked batched inversion — and checks the inversion on its own, (6) runs
 the short paths over the same kernels (Lagrange coefficients, long
 division, square roots), (7) holds the group-law kernels (Jacobian double,
-add, mixed add, and the mixed add as one lockstep round of the MSM)
-against their plain versions on planted exceptional lanes, on edge
-operands of the Montgomery product and on real G1 points, (8) runs the G1
-MSM — ``entry.g1_msm`` at 2^16, 2^18 and 2^20 and ``msm.msm_chunks`` at
-2^24 — against host oracles, step by step and under ``torch.profiler`` at
-2^20, with the round kernel at the operands of the MSM's rounds, (9) the group law's other
+add, mixed add, and the mixed add as one lockstep round of the MSM; the
+MSM's weighted reduction and Horner fold in two kernels) against their
+plain versions on planted exceptional lanes, on edge operands of the
+Montgomery product and on real G1 points, (8) runs the G1 MSM —
+``entry.g1_msm`` at 2^16, 2^18 and 2^20 and ``msm.msm_chunks`` at 2^24 —
+against host oracles, step by step and under ``torch.profiler`` at 2^20,
+with the round kernel at the operands of the MSM's rounds and the
+reduction and fold kernels at its buckets, and once on the card and on the
+CPU, in Jacobian words, (9) the group law's other
 paths (scalar multiplication, cofactor clearing, subgroup checks, the small
 MSM), (10) holds the affine tree's kernels (row pack, unpack, y negation,
 unit expansion; the halving level's denominator and completion) against
@@ -69,6 +72,7 @@ MSM_LOGS = (16, 18, 20)
 MSM_CHUNK = 20
 MSM_CHUNKED = 24
 MSM_DISTINCT = 16
+MSM_SHARED = 9  # the lockstep MSM on the card and on the CPU, Jacobian words compared
 
 
 _T0 = time.time()
@@ -1044,6 +1048,141 @@ def check_round_kernel(spec, rng, device):
     return {"field": spec.name, "words": spec.n_words, "cases": cases}
 
 
+def reduce_buckets(spec, W: int, B: int, rng: np.random.Generator, device, planted: bool):
+    """Random coordinates as [L, W, B] buckets for the MSM tail's kernels
+    (the group law is a polynomial identity, so no curve is needed).  With
+    ``planted``, in window 0: buckets at infinity as (X, Y, 0) and as
+    (1, 1, 0); the same words in two neighbouring buckets (a doubling in
+    the accT chain); an infinity right after the top bucket (two equal
+    suffix sums: a doubling in the accW chain); and window W - 1 all
+    infinity."""
+    from algebra_tpu_torch.ops import mont, sw_kernels as swk
+
+    P, _, _ = sw_operands(spec, W * B, rng, device, planted=False)
+    x, y, z = (c.reshape(-1, W, B).clone() for c in P)
+    if planted:
+        one = mont.bconst(spec.one_mont_limbs, (1,), device)[:, 0]
+        G = swk.reduce_block(B)
+        z[:, 0, B - 2] = 0
+        for c in (x, y, z):
+            c[:, 0, B - G - 2] = c[:, 0, B - G - 1]
+        for k in (B - 2 * G, B - 2 * G + 2):
+            x[:, 0, k], y[:, 0, k], z[:, 0, k] = one, one, 0
+        z[:, W - 1] = 0
+    return x.contiguous(), y.contiguous(), z.contiguous()
+
+
+def check_reduce_kernels(spec, rng, device, wide: bool = False):
+    """The MSM tail's kernels for one field against their plain versions on
+    the same inputs: ``bucket_reduce`` (the inner scan) on [L, W, B]
+    buckets, ``reduce_fold`` (outer scan and fold) on the plain inner
+    scan's T and innerW; planted buckets at B = 64 (``reduce_buckets``),
+    random ones at B = 32 (G = 8, 4 blocks); the fold alone on window sums
+    (one bucket a window); with ``wide``, 70 windows of B = 4, more than
+    one round of the fold kernel's threads.  The plain versions run on the
+    CPU (the same function: at these few lanes, thousands of small launches
+    on the card take longer)."""
+    from algebra_tpu_torch.ops import sw_kernels as swk
+
+    on_card = lambda ts: tuple(t.to(device) for t in ts)  # noqa: E731
+    cases = []
+    shapes = [(3, 64, 7, True), (2, 32, 6, False)] + ([(70, 4, 2, False)] if wide else [])
+    for W, B, c, planted in shapes:
+        P = reduce_buckets(spec, W, B, rng, "cpu", planted)
+        G = swk.reduce_block(B)
+        want_T, want_IW = swk.bucket_reduce_plain(spec, P)
+        T, IW = swk.bucket_reduce(spec, on_card(P))
+        bad_inner = tuple_mismatches(tuple(t.cpu() for t in T + IW), want_T + want_IW)
+        got = swk.reduce_fold(spec, on_card(want_T), on_card(want_IW), G, c)
+        bad_fold = tuple_mismatches(tuple(g.cpu() for g in got),
+                                    swk.reduce_fold_plain(spec, want_T, want_IW, G, c))
+        cases.append({"windows": W, "buckets": B, "block": G, "c": c, "planted": planted,
+                      "inner_mismatches": bad_inner[0], "fold_mismatches": bad_fold[0],
+                      "max_abs_err": max(bad_inner[1], bad_fold[1])})
+    sums = tuple(a[:, :, 0].contiguous() for a in reduce_buckets(spec, 5, 64, rng, "cpu", True))
+    got = swk.reduce_fold(spec, on_card(sums), None, 1, 2)
+    bad = tuple_mismatches(tuple(g.cpu() for g in got),
+                           swk.reduce_fold_plain(spec, sums, None, 1, 2))
+    cases.append({"windows": 5, "buckets": 1, "c": 2, "planted": True, "inner_mismatches": 0,
+                  "fold_mismatches": bad[0], "max_abs_err": bad[1]})
+    torch.cuda.synchronize()
+    return {"field": spec.name, "words": spec.n_words, "cases": cases}
+
+
+class CountingLaw:
+    """The general K7 and K6 (``curve.add``, ``curve.double``), counting
+    the 32-bit multiply-adds each call's data makes them do
+    (``sw_mads``)."""
+
+    def __init__(self, curve):
+        self.curve, self.mads = curve, 0
+
+    def zero(self, batch_shape=()):
+        return self.curve.zero(batch_shape)
+
+    def add(self, P, Q):
+        self.mads += sw_mads(self.curve.base.spec, P, Q)
+        return self.curve.add(P, Q)
+
+    def double(self, P):
+        self.mads += sw_mads(self.curve.base.spec, P)
+        return self.curve.double(P)
+
+
+def reduce_kernels_at(curve, buckets, c: int) -> dict:
+    """The MSM tail's two kernels at a real MSM's buckets: each against its
+    plain version on the same inputs and the pair against the general K7
+    and K6 run step by step (which also count the multiply-adds this data
+    makes them do, lane by lane on their branches); device time (launches
+    queued behind a spin kernel); bounds from the data: the bytes each
+    input read once and each output written once, the multiply-adds; and
+    the latency chain, the dependent adds and doublings of one thread.
+    The fold's plain version runs on the CPU (its batches are a window or
+    one point: on the card it is ~100,000 small launches), the inner
+    scan's on the card."""
+    from algebra_tpu_torch.ops import sw_kernels as swk
+
+    spec = curve.base.spec
+    L, W, B = buckets[0].shape
+    G = swk.reduce_block(B)
+    nb, log2G = B // G, G.bit_length() - 1
+    (want_T, want_IW), plain_inner_ms = wall_ms(lambda: swk.bucket_reduce_plain(spec, buckets))
+    cpu_T, cpu_IW = (tuple(t.cpu() for t in ts) for ts in (want_T, want_IW))
+    want, plain_fold_ms = wall_ms(lambda: swk.reduce_fold_plain(spec, cpu_T, cpu_IW, G, c))
+    T, IW = swk.bucket_reduce(spec, buckets)
+    bad_inner = tuple_mismatches(T + IW, want_T + want_IW)
+    total = swk.reduce_fold(spec, want_T, want_IW, G, c)
+    bad_fold = tuple_mismatches(tuple(t.cpu() for t in total), want)
+    law = CountingLaw(curve)
+    gen_T, gen_IW = swk.inner_scan(law, buckets, G)
+    inner_mads, law.mads = law.mads, 0
+    gen = swk.outer_fold(law, gen_T, gen_IW, G, c)
+    bad_general = tuple_mismatches(T + IW + total, gen_T + gen_IW + gen)[0]
+    del want_T, want_IW, cpu_T, cpu_IW, gen_T, gen_IW
+    coord = 4 * L  # bytes of one coordinate at one limb a word
+    inner = with_bound(
+        {"mismatches": bad_inner[0], "max_abs_err": bad_inner[1],
+         "mismatches_vs_general_k7_k6": bad_general,
+         "ms": device_ms(lambda: swk.bucket_reduce(spec, buckets), 5),
+         "host_ms_per_call": time_ms(lambda: swk.bucket_reduce(spec, buckets), 5),
+         "plain_ms": plain_inner_ms, "shape": [L, W, B], "block": G,
+         "chain": {"dependent_adds": G + 1, "adds": 2 * G * W * nb}},
+        W * B * 3 * coord + 2 * W * nb * 3 * coord, inner_mads)
+    fold = with_bound(
+        {"mismatches": bad_fold[0], "max_abs_err": bad_fold[1],
+         "mismatches_vs_general_k7_k6": bad_general,
+         "ms": device_ms(lambda: swk.reduce_fold(spec, T, IW, G, c), 5),
+         "host_ms_per_call": time_ms(lambda: swk.reduce_fold(spec, T, IW, G, c), 5),
+         "plain_ms": plain_fold_ms, "plain_device": "cpu", "shape": [L, W, nb], "c": c,
+         "chain": {"dependent_adds": nb + 1 + W, "dependent_doublings": log2G + c * W}},
+        2 * W * nb * 3 * coord + 3 * coord, law.mads)
+    for k in (inner, fold):
+        steps = sum(v for key, v in k["chain"].items() if key.startswith("dependent"))
+        k["chain"]["us_per_dependent_step"] = k["ms"] * 1e3 / steps
+    torch.cuda.synchronize()
+    return {"bucket_reduce_inner": inner, "reduce_fold": fold}
+
+
 def sw_case_failures(case: dict) -> list:
     bad = [c for c in case["ragged"] if c["double"] or c["add"] or c["madd"]]
     if case["madd_in_place_point_major_rows"] or case["add_broadcast_q"]:
@@ -1183,7 +1322,7 @@ def check_sw_main_shapes(device, rng, log_n: int, log_wide: int = 20):
     n = 1 << log_n
     c, W = msm.plan_windows(255, msm.default_window_size(n), n, tree=False)
     B = 1 << (c - 1)
-    G = min(B, 1 << (((B - 1).bit_length() + 1) // 2))
+    G = swk.reduce_block(B)
     out = {}
 
     # K8 at [L, W B], Q from rows [W B, 2L] as the round gathers them
@@ -1356,30 +1495,61 @@ def run_msm_path(device, rng, rng_host, gpu):
                       "host_oracle": "equal"})
         del bases, res, sc, aff
     # the 2^20 MSM again, phase by phase
-    phases, round_k = msm_phase_times(curve, aff256, host_scalars[:, : 1 << MSM_LOGS[-1]],
-                                      device)
+    phases, round_k, reduce_k = msm_phase_times(
+        curve, aff256, host_scalars[:, : 1 << MSM_LOGS[-1]], device)
     distinct, round_k[f"distinct_2^{MSM_DISTINCT}"] = run_distinct_bases(
         curve, rng, rng_host, device)
-    idle = [k for k in ("mont_mul", "jac_double", "jac_add", "jac_madd_round")
-            if main_counts[k] <= 0]
+    shared = msm_vs_cpu(curve, aff256, host_scalars[:, : 1 << MSM_SHARED])
+    idle = [k for k in ("mont_mul", "jac_madd_round", "bucket_reduce_inner", "reduce_fold",
+                        "inv_fermat") if main_counts[k] <= 0]
     if idle:
         raise AssertionError(f"the main MSM launched no {idle}: {main_counts}")
     torch.cuda.synchronize()
     return main_counts, {"phase": "msm_path", "curve": "bls12_381.G1",
                          "sizes": sizes, f"phases_2^{MSM_LOGS[-1]}": phases,
-                         f"distinct_bases_2^{MSM_DISTINCT}": distinct, "gpu": gpu}, round_k
+                         f"distinct_bases_2^{MSM_DISTINCT}": distinct,
+                         f"vs_cpu_2^{MSM_SHARED}": shared, "gpu": gpu}, round_k, reduce_k
+
+
+def msm_vs_cpu(curve, aff256, sc_np) -> dict:
+    """The lockstep MSM of the same bases and scalars on the card and on the
+    CPU (the kernels' plain versions): the same adds in the same order, so
+    the same words in Jacobian coordinates."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.curves.instances import bls12_381
+    from algebra_tpu_torch.ops import msm
+
+    n = sc_np.shape[1]
+    bases = tuple(a.repeat(1, n // 256) if a.ndim == 2 else a.repeat(n // 256)
+                  for a in aff256)
+    got = msm.msm(curve, bases, convert.from_reference(sc_np, curve.device))
+    plan = dict(msm.stats)
+    cpu = bls12_381.g1("cpu")
+    t0 = time.time()
+    want = msm.msm(cpu, tuple(a.cpu() for a in bases), convert.from_reference(sc_np, "cpu"))
+    cpu_s = time.time() - t0
+    bad = tuple_mismatches(tuple(g.cpu() for g in got), want)
+    if bad[0]:
+        raise AssertionError(f"the MSM on the card differs from the CPU's in {bad[0]} "
+                             f"Jacobian words")
+    return {"n": n, "plan": plan, "jacobian_mismatches": bad[0], "cpu_seconds": cpu_s}
 
 
 def msm_phase_times(curve, aff256, sc_np, device):
     """The 2^20 MSM's steps one by one, each synchronised (host clock):
     recode (digits, sort, runs), the signed row table, the bucket rounds
-    (K8's round kernel, one launch a round), the weighted reduction (K7,
-    K6), the Horner fold (K6, K7), to_affine (K1); the bucket phase once
-    under torch.profiler, with its launches by kernel (which must hold one
-    round kernel a round and no other kernel as often); then the whole MSM
-    once more under torch.profiler: device time by kernel and the share of
-    the call's wall time the device was busy.  Returns (the steps, K8's
-    round kernel at this MSM's operands)."""
+    (K8's round kernel, one launch a round), the weighted reduction's inner
+    scan (``bucket_reduce_inner``, one launch), its outer scan and the
+    Horner fold (``reduce_fold``, one launch), to_affine (K1, one K3
+    ladder); the bucket phase once under torch.profiler, with its launches
+    by kernel (which must hold one round kernel a round and no other kernel
+    as often); the reduction and fold once more, counted by the wrappers
+    and under torch.profiler (which must show the two launches, at most
+    three device kernels in all and no general K7 or K6); then the whole
+    MSM once more under torch.profiler: device time by kernel and the share
+    of the call's wall time the device was busy.  Returns (the steps, K8's
+    round kernel at this MSM's operands, the tail's kernels at its
+    buckets)."""
     from algebra_tpu_torch import convert
     from algebra_tpu_torch.ops import msm
 
@@ -1397,8 +1567,28 @@ def msm_phase_times(curve, aff256, sc_np, device):
               + msm.stats["rounds_top"])
     sums, out["reduction_ms"] = wall_ms(lambda: msm._weighted_reduce(curve, buckets))
     total, out["fold_ms"] = wall_ms(lambda: msm._horner_fold(curve, sums, c))
+    out["reduction_fold_ms"] = out["reduction_ms"] + out["fold_ms"]
     _, out["to_affine_ms"] = wall_ms(lambda: curve.to_affine(total))
-    del buckets, sums
+    _, out["to_affine_launches"] = launches_of(lambda: curve.to_affine(total))
+    del sums
+
+    def tail():
+        return msm._horner_fold(curve, msm._weighted_reduce(curve, buckets), c)
+
+    _, counts_tail = launches_of(tail)
+    tail_prof = profile_call(tail, ("bucket_reduce_inner", "reduce_fold", "jac_add",
+                                    "jac_double"), top=8)
+    by_count = tail_prof["launches_by_kernel"]
+    general = {k: v for k, v in by_count.items()
+               if re.search(r"\bjac_(add|double)_kernel<", k)}
+    if counts_tail != {"bucket_reduce_inner": 1, "reduce_fold": 1} or general \
+            or sum(by_count.values()) > 3:
+        raise AssertionError(f"the reduction and fold are not one launch each: wrappers "
+                             f"{counts_tail}, kernels {by_count}")
+    out["reduction_fold_launches"] = counts_tail
+    out["reduction_fold_profiled"] = tail_prof
+    reduce_k = reduce_kernels_at(curve, buckets, c)
+    del buckets
 
     bucket_prof = profile_call(lambda: msm.bucket_sums(curve, table, order_s, start, counts),
                                ("jac_madd_round",), top=12)
@@ -1414,8 +1604,9 @@ def msm_phase_times(curve, aff256, sc_np, device):
 
     out["profiled"] = profile_call(
         lambda: curve.to_affine(msm.msm(curve, (x, y, inf), sc)),
-        ("jac_madd_round", "jac_add", "jac_double", "mont_mul"), top=12)
-    return out, round_k
+        ("jac_madd_round", "bucket_reduce_inner", "reduce_fold", "jac_add", "jac_double",
+         "mont_mul", "inv_fermat"), top=12)
+    return out, round_k, reduce_k
 
 
 def run_distinct_bases(curve, rng, rng_host, device):
@@ -1861,8 +2052,8 @@ def tree_phase_times(curve, aff256, sc_np, device) -> dict:
         del buckets, sums
 
         families = ("expand_units", "negate_y", "pack", "unpack", "affr_denom", "affr_post",
-                    "inv_prefix", "inv_fermat", "inv_backward", "jac_madd", "jac_add",
-                    "jac_double", "mont_mul")
+                    "inv_prefix", "inv_fermat", "inv_backward", "jac_madd",
+                    "bucket_reduce_inner", "reduce_fold", "jac_add", "jac_double", "mont_mul")
         out["profiled"] = profile_call(
             lambda: curve.to_affine(msm.msm(curve, (x, y, inf), sc)), families)
     return out
@@ -1929,7 +2120,8 @@ def run_tree_path(device, rng, rng_host, gpu):
     kernels = check_tree_main_shapes(seen)
     del seen
     need = ("pack", "unpack", "negate_y", "expand_units", "affr_denom", "affr_post",
-            "inv_prefix", "inv_fermat", "inv_backward", "jac_madd", "jac_add", "jac_double")
+            "inv_prefix", "inv_fermat", "inv_backward", "jac_madd", "bucket_reduce_inner",
+            "reduce_fold")
     idle = [k for k in need if main_counts[k] <= 0]
     if idle:
         raise AssertionError(f"the tree MSM launched no {idle}: {main_counts}")
@@ -2296,6 +2488,8 @@ def glv_at_scale(curve, pts: list, rng, device) -> dict:
     res_plain, plain_stats = measure(lambda: curve.scalar_mul(P, sc, use_glv=False),
                                      ("jac_double", "jac_add"))
     bad = tuple_mismatches(curve.to_affine(res), curve.to_affine(res_plain))[0]
+    general = general_k6_k7_at(capture_glv_calls(
+        lambda: entry.scalar_mul(bases, sc, device=device)))
     lanes = rng.choice(n, HOST_SAMPLE, replace=False)
     want = host_muls(curve, [pts[j % 256] for j in lanes], limbs_to_ints(sc_np[:, lanes]))
     got = host_points(curve, *curve.to_affine(res), lanes)
@@ -2303,9 +2497,64 @@ def glv_at_scale(curve, pts: list, rng, device) -> dict:
     if bad or host_bad:
         raise AssertionError(f"GLV scalar_mul differs: {bad} words from the plain route, "
                              f"{host_bad} lanes from the host")
+    bad_general = {k: v for k, v in general.items() if v["mismatches"]}
+    if bad_general:
+        raise AssertionError(f"K6/K7 disagree at GLV's operands: {bad_general}")
     return {"n": n, "glv": glv_stats, "double_and_add": plain_stats,
             "mismatches_vs_double_and_add": bad, "host_lanes": HOST_SAMPLE,
-            "host_oracle_mismatches": host_bad}
+            "host_oracle_mismatches": host_bad, "kernel_shapes": general}
+
+
+def capture_glv_calls(run) -> dict:
+    """Run ``run()`` with ``sw_kernels.add`` and ``double`` recording the
+    operands (copies) of their first call whose P is not all infinity:
+    where GLV gives the general K7 and K6 their work."""
+    from algebra_tpu_torch.ops import sw_kernels as swk
+
+    seen, saved = {}, {name: getattr(swk, name) for name in ("add", "double")}
+
+    def wrap(name, fn):
+        def record(spec, P, *rest, **kw):
+            if name not in seen and bool((P[2] != 0).any()):
+                seen[name] = (spec, tuple(t.clone() for t in P),
+                              *(tuple(t.clone() for t in r) for r in rest))
+            return fn(spec, P, *rest, **kw)
+        return record
+
+    for name, fn in saved.items():
+        setattr(swk, name, wrap(name, fn))
+    try:
+        run()
+    finally:
+        for name, fn in saved.items():
+            setattr(swk, name, fn)
+    return seen
+
+
+def general_k6_k7_at(seen: dict) -> dict:
+    """The general K7 and K6 at the operands ``capture_glv_calls`` saw:
+    against their plain versions, in device time, with their bounds from
+    the data."""
+    from algebra_tpu_torch.ops import sw_kernels as swk
+
+    out = {}
+    spec, P, Q = seen["add"]
+    L, n = spec.n_limbs, P[0][0].numel()
+    want, plain_ms = wall_ms(lambda: swk.add_plain(spec, *P, *Q))
+    bad = tuple_mismatches(swk.add(spec, P, Q), want)
+    out["jac_add"] = with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: swk.add(spec, P, Q), 10), "shape": list(P[0].shape),
+         "field": spec.name}, n * 9 * L * 4, sw_mads(spec, P, Q))
+    spec, P = seen["double"]
+    want, plain_ms = wall_ms(lambda: swk.double_plain(spec, *P))
+    bad = tuple_mismatches(swk.double(spec, P), want)
+    out["jac_double"] = with_bound(
+        {"mismatches": bad[0], "max_abs_err": bad[1], "plain_ms": plain_ms,
+         "ms": device_ms(lambda: swk.double(spec, P), 10), "shape": list(P[0].shape),
+         "field": spec.name}, n * 6 * L * 4, sw_mads(spec, P))
+    torch.cuda.synchronize()
+    return out
 
 
 def wnaf_at_scale(curve, pts: list, rng_host, device) -> dict:
@@ -2488,6 +2737,15 @@ def main() -> int:
     if failed or on_curve["host_oracle_mismatches"]:
         raise AssertionError(f"group-law kernel disagrees: {failed} {on_curve}")
     t0 = time.time()
+    reduce_cases = [check_reduce_kernels(s, rng, device, wide=s is bls12_381.fq_spec)
+                    for s in sw_specs]
+    emit({"phase": "reduce_kernel_cases", "cases": reduce_cases,
+          "seconds": time.time() - t0, "gpu": gpu})
+    failed = [c for case in reduce_cases for c in case["cases"]
+              if c["inner_mismatches"] or c["fold_mismatches"]]
+    if failed:
+        raise AssertionError(f"an MSM-tail kernel disagrees: {failed}")
+    t0 = time.time()
     row_cases = [check_row_kernels(s, rng, device)
                  for s in (full_width, bls12_381.fq_spec, mnt4_753.fq_spec)]
     mnt_a = tuple(int(v) for v in batch_int_to_limbs(
@@ -2528,11 +2786,16 @@ def main() -> int:
     emit(run_small_inverse_paths(device, rng, gpu))
     t0 = time.time()
     with bucket_path(False):
-        msm_counts, msm_line, round_main = run_msm_path(device, rng, rng_host, gpu)
+        msm_counts, msm_line, round_main, reduce_main = run_msm_path(device, rng, rng_host,
+                                                                     gpu)
+    for name, k in reduce_main.items():
+        k.update(ptxas_of("msm_reduce_kernels", bls12_381.fq_spec.n_words, name))
     emit({**msm_line, "kernel_shapes": msm_shape, "round_kernel": round_main,
+          "reduce_kernels": reduce_main,
           "seconds": time.time() - t0})
-    bad = [k for k in (round_main, round_main[f"distinct_2^{MSM_DISTINCT}"])
-           if k["mismatches"]]
+    bad = [k for k in (round_main, round_main[f"distinct_2^{MSM_DISTINCT}"],
+                       *reduce_main.values())
+           if k["mismatches"] or k.get("mismatches_vs_general_k7_k6")]
     if bad:
         raise AssertionError(f"K8's round kernel disagrees at the MSM's operands: {bad}")
     fq_words = bls12_381.fq_spec.n_words
@@ -2553,10 +2816,12 @@ def main() -> int:
     emit({**scalar_line, "seconds": time.time() - t0})
 
     # launches: K1 and K5 as the product path counted them, K2-K4 as the
-    # division path did (which also ran K1 and K5: see its own line), K6,
-    # K7 and K8's round kernel as the 2^20 G1 MSM did on the lockstep path,
+    # division path did (which also ran K1 and K5: see its own line), K8's
+    # round kernel and the MSM tail's two kernels (K7's and K6's in the
+    # reduction and fold) as the 2^20 G1 MSM did on the lockstep path,
     # K11-K16 and the general K8 as it did through the affine tree (which
-    # also ran K2-K4, K6 and K7: see its own line),
+    # also ran K2-K4 and the tail's kernels: see its own line), the general
+    # K6 and K7 as the 2^18 GLV scalar_mul did (and times at its operands),
     # K9/K10 as one 2^20 secp256k1 entry.batch_affine_add without masks did
     # (K2-K4 too; the scalar-mul path's line has each call's counts)
     ntt_src = {"route": "cuda", "source": "algebra_tpu_torch/csrc/mont_kernels.cu",
@@ -2564,16 +2829,25 @@ def main() -> int:
     inv_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/inverse_kernels.cu"}
     sw_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/sw_kernels.cu"}
     rows_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/rows_kernels.cu"}
+    reduce_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/msm_reduce_kernels.cu"}
+    glv = scalar_line["glv_scalar_mul_secp256k1"]
+    glv_counts, glv_main = glv["glv"]["launches"], glv["kernel_shapes"]
+    for name in ("jac_add", "jac_double"):
+        glv_main[name]["at_msm_reduction_shape_before"] = sw_main[name]
     rows = [
         ("mont_mul", "algebra_tpu/ops/mont_pallas.py:189", counts, k1, ntt_src),
         ("butterfly", "algebra_tpu/ops/mont_pallas.py:417", counts, k5, ntt_src),
         ("inv_prefix", "algebra_tpu/ops/mont_pallas.py:207", inv_counts, k2, inv_src),
         ("inv_fermat", "algebra_tpu/ops/mont_pallas.py:238", inv_counts, k3, inv_src),
         ("inv_backward", "algebra_tpu/ops/mont_pallas.py:221", inv_counts, k4, inv_src),
-        ("jac_double", "algebra_tpu/ops/sw_pallas.py:111", msm_counts,
-         sw_main["jac_double"], sw_src),
-        ("jac_add", "algebra_tpu/ops/sw_pallas.py:120", msm_counts, sw_main["jac_add"],
+        ("jac_double", "algebra_tpu/ops/sw_pallas.py:111", glv_counts, glv_main["jac_double"],
          sw_src),
+        ("reduce_fold", "algebra_tpu/ops/sw_pallas.py:111", msm_counts,
+         reduce_main["reduce_fold"], reduce_src),
+        ("jac_add", "algebra_tpu/ops/sw_pallas.py:120", glv_counts, glv_main["jac_add"],
+         sw_src),
+        ("bucket_reduce_inner", "algebra_tpu/ops/sw_pallas.py:120", msm_counts,
+         reduce_main["bucket_reduce_inner"], reduce_src),
         ("jac_madd_round", "algebra_tpu/ops/sw_pallas.py:56", msm_counts, round_main,
          sw_src),
         ("jac_madd", "algebra_tpu/ops/sw_pallas.py:56", tree_counts, tree_main["jac_madd"],

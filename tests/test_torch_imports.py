@@ -76,12 +76,12 @@ def test_kernel_sources_are_in_the_package():
 
     sources = {f"{src}.cu" for src in build.KERNEL_SOURCES}
     assert sources == {"mont_kernels.cu", "inverse_kernels.cu", "sw_kernels.cu",
-                       "rows_kernels.cu"}
-    headers = {"mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh"}
+                       "rows_kernels.cu", "msm_reduce_kernels.cu"}
+    headers = {"mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh", "msm_reduce.cuh"}
     assert sources | headers <= set(os.listdir(csrc))
     assert set(build._HEADERS) == headers
     # one library per source and word count, named after a hash of the sources
     paths = {build.library_path(src, w)
              for src in build.KERNEL_SOURCES for w in build.WORD_COUNTS}
-    assert len(paths) == 12 and all("_build" in p for p in paths)
+    assert len(paths) == 15 and all("_build" in p for p in paths)
     assert set(build._signatures()) == set(build.KERNEL_SOURCES)
