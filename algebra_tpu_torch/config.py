@@ -14,9 +14,9 @@ default_device: str = "cuda"
 
 # Smallest batch that ``PrimeField.inverse`` sends through the blocked
 # batched inversion (``ops/mont.batch_inverse``).  A single element, such as
-# a leading coefficient, has nothing to share the one ladder with and takes
+# a leading coefficient, has nothing to share the one inversion with and takes
 # ``ops/mont.inv`` on the CPU; on the card it takes the blocked inversion
-# all the same, which for one element is K3's ladder alone, one launch
+# all the same, which for one element is K3's safegcd alone, one launch
 # against ~490 of ``mont.inv``'s products.
 inverse_min_batch: int = 2
 

@@ -14,6 +14,7 @@
 // never written.  A zero element counts as one in the products and gets the
 // inverse zero, so the caller masks nothing.
 
+#include "inverse.cuh"
 #include "launch.cuh"
 
 template <int W>
@@ -102,6 +103,35 @@ inv_fermat_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, si
   }
 }
 
+// out = a^-1 (Montgomery form in, Montgomery form out, zero to zero) by
+// safegcd, one thread an element (inverse.cuh).  Every thread runs the
+// same gp.batches batches of 30 divsteps.  Up to one block a
+// multiprocessor (2^14 elements) the time is that of one thread's
+// instructions, some 1,250 a batch at W = 8, not that of ~1.5 bits(p)
+// dependent Montgomery products as in the ladder.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+inv_gcd_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, size_t n,
+               GcdParams<W> gp) {
+  size_t step = (size_t)gridDim.x * blockDim.x;
+  for (size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x; j < n; j += step) {
+    uint32_t x[W], r[W];
+    load_limbs<W>(x, a, n, j);
+    inv_gcd<W>(r, x, gp);
+    store_limbs<W>(out, n, j, r);
+  }
+}
+
+static GcdParams<kW> make_gcd_params(const uint32_t* p_words, uint32_t inv32,
+                                     const uint32_t* r2_words, int batches) {
+  GcdParams<kW> gp;
+  to_signed30<kW>(gp.p, p_words);
+  gp.p_inv30 = (0u - inv32) & (uint32_t)kM30;  // inv32 = -p^-1 mod 2^32
+  for (int k = 0; k < kW; ++k) gp.r2[k] = r2_words[k];
+  gp.batches = batches;
+  return gp;
+}
+
 extern "C" {
 
 int inverse_words() { return kW; }
@@ -130,6 +160,13 @@ int inv_fermat_launch(const void* a, void* out, size_t n, const uint32_t* e_word
   inv_fermat_kernel<kW><<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)a, (uint32_t*)out, n, make_words(e_words), nbits,
       make_params(p_words, inv32));
+  return (int)cudaGetLastError();
+}
+
+int inv_gcd_launch(const void* a, void* out, size_t n, const uint32_t* p_words,
+                   uint32_t inv32, const uint32_t* r2_words, int batches, void* stream) {
+  inv_gcd_kernel<kW><<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, (uint32_t*)out, n, make_gcd_params(p_words, inv32, r2_words, batches));
   return (int)cudaGetLastError();
 }
 

@@ -231,8 +231,8 @@ class SWCurve:
         return (B.select(inf, one, x), B.select(inf, one, y), B.select(inf, zero, one))
 
     def to_affine(self, P):
-        """Batch-normalise to affine: one batched inversion of Z (the
-        blocked inversion for a batch, the ladder for one point)."""
+        """Batch-normalise to affine: one batched inversion of Z
+        (``PrimeField.inverse``)."""
         B = self.base
         X, Y, Z = P
         inf = self.is_zero(P)

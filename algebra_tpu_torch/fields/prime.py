@@ -67,10 +67,10 @@ class PrimeField(Field):
 
     def inverse(self, a):
         """Inverse; 0 -> 0.  A batch goes through the blocked batched
-        inversion (about three products an element), a single element
-        through a Fermat ladder: on the card K3's, one launch (the blocked
-        inversion of one element is its ladder alone), on the CPU
-        ``mont.inv``'s.  All give the unique canonical inverse."""
+        inversion (about three products an element), a single element on
+        the card too (for one element it is K3's safegcd alone, one
+        launch), and on the CPU through ``mont.inv``'s Fermat ladder.  All
+        give the unique canonical inverse."""
         if a[0].numel() >= config.inverse_min_batch or a.device.type == "cuda":
             return mont.batch_inverse(self.spec, a)
         return mont.inv(self.spec, a)

@@ -26,7 +26,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # one library each, for each word count
 KERNEL_SOURCES = ("mont_kernels", "inverse_kernels", "sw_kernels", "rows_kernels",
                   "msm_reduce_kernels")
-_HEADERS = ("mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh", "msm_reduce.cuh")
+_HEADERS = ("mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh", "msm_reduce.cuh", "inverse.cuh")
 WORD_COUNTS = (8, 12, 24)
 
 _libs: dict[tuple[str, int], ctypes.CDLL] = {}
@@ -141,6 +141,7 @@ def _signatures() -> dict[str, dict[str, list]]:
                 vp, vp, vp, vp, sz, sz, ci, words_p, u32, words_p, vp,
             ],
             "inv_fermat_launch": [vp, vp, sz, words_p, ci, words_p, u32, vp],
+            "inv_gcd_launch": [vp, vp, sz, words_p, u32, words_p, ci, vp],
         },
         "sw_kernels": {
             "sw_words": [],

@@ -170,7 +170,7 @@ def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 def batch_inverse(spec: FieldSpec, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """Inverse of every element of a [L, *batch] value, zero to zero, by
     blocked batched inversion: about three products an element and one
-    short ladder (``mont_kernels.batch_inverse``).
+    inversion of a short batch (``mont_kernels.batch_inverse``).
 
     The reference has two of these, a scan along one batch axis and a
     blocked one over the flattened batch.  Inverses are unique and

@@ -33,32 +33,41 @@ path (``csrc/mont_kernels.cu``) and three for batched inversion
     stage moves the array once and nothing else.  Fusing several stages
     per launch in shared memory is the next step, not taken here.
 
-``inv_prefix``, ``inv_fermat``, ``inv_backward``  (run by ``batch_inverse``)
+``inv_prefix``, ``inv_gcd``, ``inv_backward``  (run by ``batch_inverse``)
     Replace the TPU kernels ``_prefix_kernel``, ``_fermat_kernel`` and
     ``_backward_kernel`` (``ops/mont_pallas.py:207``, ``:238``, ``:221``,
     run by ``batch_inverse`` :325): Montgomery's trick in blocks, about
-    three products an element and one short ladder, whatever n.  A level
-    sees its n elements as G rows of m = ceil(n / G) consecutive elements;
-    one thread walks one column.  ``inv_prefix`` writes the running
-    products down every column and the column totals, which are the next
-    level's batch; at the bottom ``inv_fermat`` raises at most
-    ``INV_BOTTOM`` elements to p - 2 (one thread each, the exponent a
-    launch constant, a dedicated squaring ``mont_sq``); ``inv_backward``
-    unwinds a level with two products an element.  Bounds: the prefix
-    kernel must read a and write the prefixes (2 * L * 4 bytes an element),
-    the backward kernel must read a and the prefixes and write the inverses
-    (3 * L * 4 bytes), each for one and two products an element, so device
-    memory bounds both; the ladder is a chain of ~1.5 * bits(p) dependent
-    products on few threads, so its bound is operations and its time is
-    that chain's latency.  The TPU version's 128-lane rows, groups of at
-    most 32 and the one-row bottom are its tile, not the mathematics:
-    here a level is one flat [G, m] view of the whole array, so a warp
-    reads a row contiguously, two levels reach 2^24 elements, and the
-    bottom is wide enough to put a block on every multiprocessor.  The
-    reference pads with ones by concatenation and masks zeros with
-    whole-array selects before and after; here the kernels read an element
-    past the end, or a zero, as one, and write zero where the input was
-    zero, so nothing but the arrays named above touches memory.
+    three products an element and one inversion of at most ``INV_BOTTOM``
+    elements, whatever n.  A level sees its n elements as G rows of
+    m = ceil(n / G) consecutive elements; one thread walks one column.
+    ``inv_prefix`` writes the running products down every column and the
+    column totals, which are the next level's batch; at the bottom
+    ``inv_gcd`` inverts each element by Bernstein-Yang safegcd
+    (``csrc/inverse.cuh``: a fixed count of divsteps from the paper's
+    bound, in batches of 30 on 32-bit words, each batch's matrix applied
+    to signed 30-bit limbs; one thread an element, no branch);
+    ``inv_backward`` unwinds a level with two products an element.
+    Bounds: the prefix kernel must read a and write the prefixes
+    (2 * L * 4 bytes an element), the backward kernel must read a and the
+    prefixes and write the inverses (3 * L * 4 bytes), each for one and
+    two products an element, so device memory bounds both; the bottom is
+    a chain of dependent steps on few threads, so its time is that
+    chain's latency.  The TPU kernel at the bottom is a ladder of
+    ~1.5 * bits(p) dependent Montgomery products (a^(p-2)); ``inv_fermat``
+    is its counterpart here, a ladder over any launch-constant exponent
+    (the dedicated squaring ``mont_sq`` with exponent 2), which nothing on
+    the main path runs any more: safegcd runs ~2.9 bits(p) divsteps of
+    ~26 word operations each, where the ladder's chain is ~1.5 bits(p)
+    products of ~2 W^2 multiply-adds each.  The TPU version's 128-lane
+    rows, groups of at most 32 and the one-row bottom are its tile, not
+    the mathematics: here a level is one flat [G, m] view of the whole
+    array, so a warp reads a row contiguously, two levels reach 2^24
+    elements, and the bottom is wide enough to put a block on every
+    multiprocessor.  The reference pads with ones by concatenation and
+    masks zeros with whole-array selects before and after; here the
+    kernels read an element past the end, or a zero, as one, and write
+    zero where the input was zero, so nothing but the arrays named above
+    touches memory.
 
 Dispatch has no switch: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises.  The plain versions do the same
@@ -82,17 +91,17 @@ from ..fields.spec import FieldSpec
 # and the row kernels of ``ops/rows.py``.  A wrapper adds one where it
 # launches its kernel and nowhere else.
 launches = {"mont_mul": 0, "butterfly": 0, "inv_prefix": 0, "inv_fermat": 0,
-            "inv_backward": 0, "jac_double": 0, "jac_add": 0, "jac_madd": 0,
-            "jac_madd_round": 0, "bucket_reduce_inner": 0, "reduce_fold": 0,
+            "inv_gcd": 0, "inv_backward": 0, "jac_double": 0, "jac_add": 0,
+            "jac_madd": 0, "jac_madd_round": 0, "bucket_reduce_inner": 0, "reduce_fold": 0,
             "aff_denom": 0, "aff_post": 0, "affr_denom": 0, "affr_post": 0, "pack": 0, "unpack": 0,
             "negate_y": 0, "expand_units": 0}
 
 # Blocked inversion: a level folds at most INV_GROUP rows into one, and
 # levels are added until at most INV_BOTTOM elements are left for the
-# ladder.  16384 elements are one 128-thread block for each of the card's
-# multiprocessors: the ladder's time is the latency of its chain of
-# products up to about that width, so a narrower bottom would save nothing
-# and cost a level.
+# bottom's per-element inversion.  16384 elements are one 128-thread block
+# for each of the card's multiprocessors: the bottom's time is the latency
+# of its chain of steps up to about that width, so a narrower bottom would
+# save nothing and cost a level.
 INV_GROUP = 32
 INV_BOTTOM = 16384
 
@@ -315,7 +324,9 @@ def inv_backward_plain(spec: FieldSpec, a: torch.Tensor, pref: torch.Tensor,
 
 def inv_fermat_plain(spec: FieldSpec, a: torch.Tensor, exponent: int | None = None):
     """a^exponent (p - 2 when None) by square and multiply over the
-    exponent's bits, most significant first; zero goes to zero."""
+    exponent's bits, most significant first; zero goes to zero.  With
+    p - 2 it is the plain version of ``inv_gcd`` too: inverses are unique
+    and canonical."""
     e = _check_exponent(spec, exponent)
     res = a
     for bit in bin(e)[3:]:
@@ -524,7 +535,8 @@ def level_plan(n: int, group: int = INV_GROUP, bottom: int = INV_BOTTOM):
     """The levels of a blocked inversion of n elements, top first, as
     (elements, rows, columns): each level folds ``rows`` rows into one and
     hands ``columns`` totals to the next, until at most ``bottom`` are left
-    for the ladder.  A level takes no more rows than it needs to get there."""
+    for the bottom's per-element inversion.  A level takes no more rows
+    than it needs to get there."""
     if group < 2 or bottom < 1:
         raise ValueError("group must be at least 2 and bottom at least 1")
     plan = []
@@ -619,14 +631,55 @@ def inv_fermat(spec: FieldSpec, a: torch.Tensor, exponent: int | None = None):
     return out
 
 
-def _blocked_inverse(spec, a, group, bottom, prefix, fermat, backward):
+def gcd_batches(spec: FieldSpec) -> int:
+    """Batches of 30 safegcd divsteps that invert any x < p: Bernstein and
+    Yang's bound on the original divstep (TCHES 2019, Theorem 11.2), with
+    d = bits(p), (49 d + 57) / 17 divsteps for d >= 46 and (49 d + 80) / 17
+    below, its ceiling rounded up to whole batches."""
+    d = spec.modulus.bit_length()
+    steps = -(-(49 * d + (57 if d >= 46 else 80)) // 17)
+    return -(-steps // 30)
+
+
+@functools.lru_cache(maxsize=None)
+def _r2_words_arg(spec: FieldSpec):
+    r2 = spec.R * spec.R % spec.modulus
+    return (ctypes.c_uint32 * spec.n_words)(
+        *[(r2 >> (32 * k)) & 0xFFFFFFFF for k in range(spec.n_words)])
+
+
+def inv_gcd(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Per-element inverse of a [L, n] (Montgomery form in and out), zero
+    to zero, by safegcd: one thread an element, ``gcd_batches`` batches of
+    30 divsteps each, one launch.  A CPU tensor takes ``inv_fermat_plain``,
+    which computes the same function."""
+    device = _check_flat(spec, a)
+    if device.type == "cpu":
+        return inv_fermat_plain(spec, a)
+    from ..kernels import build
+
+    _require_contiguous("a", a)
+    out = torch.empty_like(a)
+    lib = build.library("inverse_kernels", spec.n_words)
+    with torch.cuda.device(device):
+        code = lib.inv_gcd_launch(
+            a.data_ptr(), out.data_ptr(), a.shape[1], _p_words_arg(spec), spec.inv32,
+            _r2_words_arg(spec), gcd_batches(spec),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    launches["inv_gcd"] += 1
+    _raise_on_error(code, "inv_gcd")
+    return out
+
+
+def _blocked_inverse(spec, a, group, bottom, prefix, invert, backward):
     stack = []
     cur = a
     for _, rows, _ in level_plan(a.shape[1], group, bottom):
         pref, tails = prefix(spec, cur, rows)
         stack.append((cur, pref, rows))
         cur = tails
-    inv = fermat(spec, cur)
+    inv = invert(spec, cur)
     while stack:
         lvl, pref, rows = stack.pop()
         inv = backward(spec, lvl, pref, inv, rows)
@@ -637,9 +690,9 @@ def batch_inverse(spec: FieldSpec, a: torch.Tensor, group: int = INV_GROUP,
                   bottom: int = INV_BOTTOM) -> torch.Tensor:
     """Inverse of every element of a [L, n] (Montgomery form), zero to
     zero: ``inv_prefix`` down the levels of ``level_plan``, one
-    ``inv_fermat`` at the bottom, ``inv_backward`` up again.  Bit-identical
+    ``inv_gcd`` at the bottom, ``inv_backward`` up again.  Bit-identical
     to a per-element ladder, since inverses are unique and canonical.
     ``group`` and ``bottom`` shape the levels, not the result."""
     _check_flat(spec, a)
-    return _blocked_inverse(spec, a, group, bottom, inv_prefix, inv_fermat,
+    return _blocked_inverse(spec, a, group, bottom, inv_prefix, inv_gcd,
                             inv_backward)

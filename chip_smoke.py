@@ -33,11 +33,13 @@ the sizes of (8) against the host oracle, both bucket paths in turns at
 2^20, and the tree's kernels at the shapes of the 2^20 MSM, (12) holds the
 affine addition's kernels on coordinate arrays (denominator, completion)
 against their plain versions and real secp256k1 and G1 pairs against the
-host, and (13) runs BASELINE configs[2]: ``entry.batch_affine_add`` on 2^20
+host, (13) runs BASELINE configs[2]: ``entry.batch_affine_add`` on 2^20
 secp256k1 and 2^20 G1 pairs, ``entry.scalar_mul`` by GLV on 2^18
 secp256k1 points against plain double-and-add, wNAF, ``entry.fixed_base_msm``
 on 2^20 scalars and ``entry.scalar_mul`` on 2^16 Jubjub points, each
-against the host.  Phases 7-8 run the lockstep bucket path and 11 the tree,
+against the host, and (14) times the bottom of the batched inversion (K3,
+safegcd) against the Fermat ladder it replaced, at the bottoms those
+paths give it.  Phases 7-8 run the lockstep bucket path and 11 the tree,
 whatever ``config.msm_affine_tree`` says.  Every comparison is bit-exact (tolerance
 0: outputs are canonical integers).  One JSON object per line; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -441,13 +443,63 @@ def inverse_defects(spec, a: torch.Tensor, inv: torch.Tensor) -> int:
     return int(bad.sum().item())
 
 
+def gcd_operands(spec, n: int, rng) -> np.ndarray:
+    """[L, n] Montgomery-form values for the safegcd bottom: random, zeros
+    planted at the first and last lane and at 128:200 where n reaches, and
+    from lane 1 on the edge values 1, 2, p - 1, p - 2, (p - 1) / 2, R mod p,
+    R^2 mod p and four values just below p, as far as n reaches."""
+    from algebra_tpu_torch.bigint import batch_int_to_limbs
+
+    p, R = spec.modulus, spec.R
+    a = random_limbs(spec, n, rng)
+    edge = [1, 2, p - 1, p - 2, (p - 1) // 2, R % p, R * R % p]
+    edge += [p - 1 - int(v) for v in rng.integers(0, 1 << 40, size=4)]
+    k = min(len(edge), n - 2)
+    if k > 0:
+        a[:, 1 : 1 + k] = batch_int_to_limbs(edge[:k], spec.n_limbs)
+    a[:, [0, n - 1]] = 0
+    a[:, 128:200] = 0
+    return a
+
+
+def check_gcd_kernel(spec, rng, device) -> list:
+    """K3 (``inv_gcd``) for one field at n = 1 (a random value, and zero),
+    127, 4097 and 2^14 on ``gcd_operands``: every lane against the
+    ladder's plain version (one call over all the cases' lanes) and the
+    host oracle."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    one = random_limbs(spec, 2, rng)
+    one[:, 1] = 0
+    inputs = [("random", one[:, :1]), ("zero", one[:, 1:])]
+    inputs += [("planted", gcd_operands(spec, n, rng)) for n in (127, 4097, 1 << 14)]
+    a_all = np.concatenate([a for _, a in inputs], axis=1)
+    plain_all = mk.inv_fermat_plain(spec, convert.from_reference(a_all, device))
+    want_all = inverse_oracle(spec, a_all, list(range(a_all.shape[1])))
+    out, start = [], 0
+    for kind, a_np in inputs:
+        n = a_np.shape[1]
+        got = mk.inv_gcd(spec, convert.from_reference(a_np, device))
+        got_ints = limbs_to_ints(convert.to_reference(got))
+        bad, err = mismatches(got, plain_all[:, start : start + n])
+        out.append({"n": n, "lanes": kind, "batches": mk.gcd_batches(spec),
+                    "mismatches": bad, "max_abs_err": err, "oracle_lanes": n,
+                    "oracle_mismatches": sum(
+                        g != w for g, w in zip(got_ints, want_all[start : start + n]))})
+        start += n
+    return out
+
+
 def check_inverse_kernels(spec, rng, device):
     """K2-K4 for one field.  The dedicated squaring against the product
-    a * a; each kernel against its plain version on ragged shapes with
-    planted zeros; the whole inversion on every lane (a * inv == 1, zero to
-    zero) and against a host big-integer oracle on 64 lanes, for ragged n,
-    with the levels the port uses and with small ones that fold a short
-    batch several times."""
+    a * a (through the ladder); each kernel against its plain version on
+    ragged shapes with planted zeros, the safegcd bottom also at n = 1 and
+    with edge values (``check_gcd_kernel``) and the ladder beside it; the
+    whole inversion on every lane (a * inv == 1, zero to zero) and against
+    a host big-integer oracle on 64 lanes, for ragged n, with the levels
+    the port uses and with small ones that fold a short batch several
+    times."""
     from algebra_tpu_torch import convert
     from algebra_tpu_torch.bigint import batch_int_to_limbs
     from algebra_tpu_torch.ops import mont_kernels as mk
@@ -476,13 +528,20 @@ def check_inverse_kernels(spec, rng, device):
         pref, tails = mk.inv_prefix(spec, a, group)
         p_pref, p_tails = mk.inv_prefix_plain(spec, a, group)
         bad2 = mismatches(pref, p_pref)[0] + mismatches(tails, p_tails)[0]
-        tinv = mk.inv_fermat(spec, tails)
-        bad3 = mismatches(tinv, mk.inv_fermat_plain(spec, tails))[0] if n == 4097 else None
+        tinv = mk.inv_gcd(spec, tails)
+        ladder = mk.inv_fermat(spec, tails)
+        if n == 4097:
+            p_tinv = mk.inv_fermat_plain(spec, tails)
+            bad3 = mismatches(tinv, p_tinv)[0]
+            bad3_ladder = mismatches(ladder, p_tinv)[0]
+        else:
+            bad3 = bad3_ladder = None
         out = mk.inv_backward(spec, a, pref, tinv, group)
         bad4 = mismatches(out, mk.inv_backward_plain(spec, a, pref, tinv, group))[0]
         single.append({"n": n, "group": group, "columns": int(tails.shape[1]),
-                       "prefix_mismatches": bad2, "fermat_mismatches": bad3,
-                       "backward_mismatches": bad4})
+                       "prefix_mismatches": bad2, "gcd_mismatches": bad3,
+                       "gcd_vs_ladder_mismatches": mismatches(tinv, ladder)[0],
+                       "ladder_mismatches": bad3_ladder, "backward_mismatches": bad4})
 
     whole = []
     shapes = [(n, False) for n in (1, 127, 260, 4097, (1 << 16) + 3)] + [(260, True)]
@@ -501,16 +560,19 @@ def check_inverse_kernels(spec, rng, device):
                 "oracle_lanes": len(lanes),
                 "oracle_mismatches": sum(g != w for g, w in zip(got_lanes, want)),
             })
+    gcd = check_gcd_kernel(spec, rng, device)
     torch.cuda.synchronize()
     return {"field": spec.name, "words": spec.n_words,
             "mont_sq": {"n": sq_n, "mismatches": sq_bad, "max_abs_err": sq_err},
-            "single_kernels": single, "batch_inverse": whole}
+            "single_kernels": single, "gcd": gcd, "batch_inverse": whole}
 
 
 def inverse_case_failures(case: dict) -> list:
     bad = [case["mont_sq"]] if case["mont_sq"]["mismatches"] else []
     bad += [c for c in case["single_kernels"]
-            if c["prefix_mismatches"] or c["fermat_mismatches"] or c["backward_mismatches"]]
+            if c["prefix_mismatches"] or c["gcd_mismatches"] or c["ladder_mismatches"]
+            or c["gcd_vs_ladder_mismatches"] or c["backward_mismatches"]]
+    bad += [c for c in case["gcd"] if c["mismatches"] or c["oracle_mismatches"]]
     bad += [c for c in case["batch_inverse"] if c["mismatches"] or c["oracle_mismatches"]]
     return bad
 
@@ -518,7 +580,8 @@ def inverse_case_failures(case: dict) -> list:
 def check_inverse_main_shapes(spec, rng, device, log_n):
     """K2, K3 and K4 at the shapes the division path gives them (the top
     level of a 2^log_n inversion, and its bottom), against their plain
-    versions, with times and bounds; and every level's kernel times."""
+    versions, with times and bounds; K3 (safegcd) also against the ladder
+    it replaced, both timed in turns; and every level's kernel times."""
     from algebra_tpu_torch import convert
     from algebra_tpu_torch.ops import mont_kernels as mk
 
@@ -538,7 +601,7 @@ def check_inverse_main_shapes(spec, rng, device, log_n):
         levels.append((cur, pref, rows))
         cur = tails
     bottom = cur
-    tinv_bottom = mk.inv_fermat(spec, bottom)
+    tinv_bottom = mk.inv_gcd(spec, bottom)
     # up: every level's tail inverses
     tinvs, inv = [None] * len(levels), tinv_bottom
     for i in range(len(levels) - 1, -1, -1):
@@ -559,6 +622,7 @@ def check_inverse_main_shapes(spec, rng, device, log_n):
     del p_out
     p_tinv, plain3 = wall_ms(lambda: mk.inv_fermat_plain(spec, bottom))
     bad3 = mismatches(tinv_bottom, p_tinv)
+    bad3_ladder = mismatches(mk.inv_fermat(spec, bottom), p_tinv)[0]
     del p_tinv, out
 
     level_ms = []
@@ -568,10 +632,9 @@ def check_inverse_main_shapes(spec, rng, device, log_n):
             "prefix_ms": time_ms(lambda: mk.inv_prefix(spec, lvl, g), 5),
             "backward_ms": time_ms(lambda: mk.inv_backward(spec, lvl, pr, ti, g), 5),
         })
-    fermat_ms = time_ms(lambda: mk.inv_fermat(spec, bottom), 5)
+    k3 = gcd_vs_ladder(spec, bottom)
 
     nb = bottom.shape[1]
-    e = spec.modulus - 2
     products = (rows - 1) * m  # one a column in every row but the first
     k2 = with_bound(
         {"mismatches": bad2[0] + bad2t[0], "max_abs_err": max(bad2[1], bad2t[1]),
@@ -583,14 +646,63 @@ def check_inverse_main_shapes(spec, rng, device, log_n):
          "ms": level_ms[0]["backward_ms"], "plain_ms": plain4, "shape": [L, n],
          "rows": rows},
         (3 * n + m) * L * 4, 2 * products * mads_per_product(spec))
-    k3 = with_bound(
-        {"mismatches": bad3[0], "max_abs_err": bad3[1], "ms": fermat_ms,
-         "plain_ms": plain3, "shape": [L, nb],
-         "chain_products": (e.bit_length() - 1) + (bin(e).count("1") - 1)},
-        2 * nb * L * 4,
-        nb * ((e.bit_length() - 1) * mads_per_square(spec)
-              + (bin(e).count("1") - 1) * mads_per_product(spec)))
-    return k2, k3, k4, {"levels": level_ms, "fermat_n": nb, "fermat_ms": fermat_ms}
+    k3.update({"mismatches": bad3[0] + k3["mismatches"], "max_abs_err": bad3[1],
+               "ladder_mismatches": bad3_ladder, "plain_ms": plain3})
+    return k2, k3, k4, {"levels": level_ms, "bottom_n": nb, "gcd_ms": k3["ms"],
+                        "ladder_ms": k3["ladder_ms"]}
+
+
+def gcd_work(spec, n: int) -> tuple:
+    """(bytes, 32 x 32 -> 64 multiply-adds) of K3's safegcd on n elements:
+    one element read and one written; a fixed count of batches, each one
+    matrix update on N signed 30-bit limbs (4 N multiply-adds for f, g;
+    6 N + 2 for d, e) after 30 divsteps, whose word operations the
+    compiler merges and which are left out."""
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    limbs = 32 * spec.n_words // 30 + 1
+    return 2 * n * spec.n_limbs * 4, n * mk.gcd_batches(spec) * (10 * limbs + 2)
+
+
+def ladder_mads(spec, n: int) -> int:
+    """32-bit multiply-adds of the Fermat ladder a^(p-2) on n elements."""
+    e = spec.modulus - 2
+    return n * ((e.bit_length() - 1) * mads_per_square(spec)
+                + (bin(e).count("1") - 1) * mads_per_product(spec))
+
+
+def gcd_vs_ladder(spec, a: torch.Tensor, reps: int = 20) -> dict:
+    """K3 through safegcd (``inv_gcd``) and the Fermat ladder it replaced
+    (``inv_fermat``) on the same [L, n] batch: equal outputs, device times
+    in turns (ladder, safegcd, safegcd, ladder), the safegcd's bound from
+    its bytes and counted multiply-adds, the ladder's bound, and one lane's
+    safegcd time: the latency floor of a chain of fixed length, which binds
+    up to one block a multiprocessor (2^14 lanes)."""
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    n = a.shape[1]
+    bad = mismatches(mk.inv_gcd(spec, a), mk.inv_fermat(spec, a))
+    gcd = lambda: mk.inv_gcd(spec, a)  # noqa: E731
+    ladder = lambda: mk.inv_fermat(spec, a)  # noqa: E731
+    turns = [device_ms(f, reps) for f in (ladder, gcd, gcd, ladder)]
+    lane = a[:, :1].contiguous()
+    one_lane_ms = device_ms(lambda: mk.inv_gcd(spec, lane), reps)
+    n_bytes, mads = gcd_work(spec, n)
+    k = with_bound(
+        {"name": "inv_gcd_kernel", "field": spec.name, "words": spec.n_words,
+         "shape": [spec.n_limbs, n], "mismatches": bad[0], "max_abs_err": bad[1],
+         "ms": (turns[1] + turns[2]) / 2, "ladder_ms": (turns[0] + turns[3]) / 2,
+         "turns_ms_ladder_gcd_gcd_ladder": turns, "batches": mk.gcd_batches(spec),
+         "divsteps": 30 * mk.gcd_batches(spec), "latency_floor_ms": one_lane_ms,
+         "multiply_adds": mads,
+         "ladder_bound_ms": max(n_bytes / PEAK_BYTES_PER_S,
+                                ladder_mads(spec, n) / PEAK_INT32_MAD_PER_S) * 1e3,
+         "library_ms": None,
+         "library_call": "none: no PyTorch call inverts a 255- to 753-bit field element"},
+        n_bytes, mads)
+    k["share_of_bound"] = k["bound_ms"] / k["ms"]
+    k["share_of_latency_floor"] = one_lane_ms / k["ms"]
+    return k
 
 
 # ---------------------------------------------------------------------------
@@ -757,7 +869,7 @@ def run_inverse_path(device, rng, gpu, log_n, level_times):
     want_counts = {**dict.fromkeys(counts, 0),
                    "mont_mul": 2 * (log_n - 1) + 3 * (log_n + 2) + 2,
                    "butterfly": 3 * log_n, "inv_prefix": len(plan),
-                   "inv_fermat": 1, "inv_backward": len(plan)}
+                   "inv_gcd": 1, "inv_backward": len(plan)}
     if counts != want_counts:
         raise AssertionError(f"launch counts {counts}, expected {want_counts}")
     if not plan:
@@ -837,7 +949,7 @@ def run_small_inverse_paths(device, rng, gpu):
     tau = rand(1)[:, 0].contiguous()
     mk.reset_launches()
     li = domain.evaluate_all_lagrange_coefficients(tau)
-    if not all(mk.launches[k] > 0 for k in ("inv_prefix", "inv_fermat", "inv_backward")):
+    if not all(mk.launches[k] > 0 for k in ("inv_prefix", "inv_gcd", "inv_backward")):
         raise AssertionError(f"Lagrange coefficients skipped a kernel: {mk.launches}")
     if not torch.equal(F.sum(li, axis=0), F.one()):
         raise AssertionError("the Lagrange coefficients do not sum to one")
@@ -1501,7 +1613,7 @@ def run_msm_path(device, rng, rng_host, gpu):
         curve, rng, rng_host, device)
     shared = msm_vs_cpu(curve, aff256, host_scalars[:, : 1 << MSM_SHARED])
     idle = [k for k in ("mont_mul", "jac_madd_round", "bucket_reduce_inner", "reduce_fold",
-                        "inv_fermat") if main_counts[k] <= 0]
+                        "inv_gcd") if main_counts[k] <= 0]
     if idle:
         raise AssertionError(f"the main MSM launched no {idle}: {main_counts}")
     torch.cuda.synchronize()
@@ -1540,8 +1652,8 @@ def msm_phase_times(curve, aff256, sc_np, device):
     recode (digits, sort, runs), the signed row table, the bucket rounds
     (K8's round kernel, one launch a round), the weighted reduction's inner
     scan (``bucket_reduce_inner``, one launch), its outer scan and the
-    Horner fold (``reduce_fold``, one launch), to_affine (K1, one K3
-    ladder); the bucket phase once under torch.profiler, with its launches
+    Horner fold (``reduce_fold``, one launch), to_affine (K1, one K3);
+    the bucket phase once under torch.profiler, with its launches
     by kernel (which must hold one round kernel a round and no other kernel
     as often); the reduction and fold once more, counted by the wrappers
     and under torch.profiler (which must show the two launches, at most
@@ -1590,22 +1702,31 @@ def msm_phase_times(curve, aff256, sc_np, device):
     reduce_k = reduce_kernels_at(curve, buckets, c)
     del buckets
 
+    # the round kernel's launches by its wrapper's count, which is exact;
+    # torch.profiler can drop a few kernels of a traced call (it recorded
+    # 80 of 86 round kernels in one run), so its counts may fall short of
+    # the calls made, never exceed them
+    _, counts_bucket = launches_of(
+        lambda: msm.bucket_sums(curve, table, order_s, start, counts))
     bucket_prof = profile_call(lambda: msm.bucket_sums(curve, table, order_s, start, counts),
                                ("jac_madd_round",), top=12)
     by_count = bucket_prof["launches_by_kernel"]
     n_round = sum(v for k, v in by_count.items() if "jac_madd_round_kernel" in k)
     other = {k: v for k, v in by_count.items() if "jac_madd_round_kernel" not in k}
-    if n_round != rounds or max(other.values(), default=0) >= rounds // 2:
+    other_wrappers = {k: v for k, v in counts_bucket.items() if k != "jac_madd_round"}
+    if counts_bucket.get("jac_madd_round") != rounds or n_round > rounds \
+            or max([*other.values(), *other_wrappers.values()], default=0) >= rounds // 2:
         raise AssertionError(f"the bucket phase is not one launch a round: {rounds} rounds, "
-                             f"launches {by_count}")
-    out["bucket_phase_profiled"] = {**bucket_prof, "rounds": rounds}
+                             f"wrappers {counts_bucket}, kernels {by_count}")
+    out["bucket_phase_profiled"] = {**bucket_prof, "rounds": rounds,
+                                    "launches_by_wrapper": counts_bucket}
     round_k = round_kernel_at(curve, table, order_s, start, counts)
     del order_s, start, counts, table
 
     out["profiled"] = profile_call(
         lambda: curve.to_affine(msm.msm(curve, (x, y, inf), sc)),
         ("jac_madd_round", "bucket_reduce_inner", "reduce_fold", "jac_add", "jac_double",
-         "mont_mul", "inv_fermat"), top=12)
+         "mont_mul", "inv_gcd"), top=12)
     return out, round_k, reduce_k
 
 
@@ -2052,7 +2173,7 @@ def tree_phase_times(curve, aff256, sc_np, device) -> dict:
         del buckets, sums
 
         families = ("expand_units", "negate_y", "pack", "unpack", "affr_denom", "affr_post",
-                    "inv_prefix", "inv_fermat", "inv_backward", "jac_madd",
+                    "inv_prefix", "inv_gcd", "inv_backward", "jac_madd",
                     "bucket_reduce_inner", "reduce_fold", "jac_add", "jac_double", "mont_mul")
         out["profiled"] = profile_call(
             lambda: curve.to_affine(msm.msm(curve, (x, y, inf), sc)), families)
@@ -2120,7 +2241,7 @@ def run_tree_path(device, rng, rng_host, gpu):
     kernels = check_tree_main_shapes(seen)
     del seen
     need = ("pack", "unpack", "negate_y", "expand_units", "affr_denom", "affr_post",
-            "inv_prefix", "inv_fermat", "inv_backward", "jac_madd", "bucket_reduce_inner",
+            "inv_prefix", "inv_gcd", "inv_backward", "jac_madd", "bucket_reduce_inner",
             "reduce_fold")
     idle = [k for k in need if main_counts[k] <= 0]
     if idle:
@@ -2247,7 +2368,7 @@ FIXED_LOG, FIXED_C = 20, 8  # entry.fixed_base_msm
 TE_LOG = 16  # entry.scalar_mul on Jubjub
 HOST_SAMPLE = 1024
 AFF_SAMPLE = 1 << 14
-AFF_KERNELS = ("aff_denom", "aff_post", "inv_prefix", "inv_fermat", "inv_backward")
+AFF_KERNELS = ("aff_denom", "aff_post", "inv_prefix", "inv_gcd", "inv_backward")
 PATH_FAMILIES = AFF_KERNELS + ("jac_double", "jac_add", "mont_mul")
 
 
@@ -2639,6 +2760,37 @@ def jubjub_at_scale(rng, rng_host, device) -> dict:
             "cofactor_and_subgroup_checks_on_64_points_outside": "passed"}
 
 
+def run_inverse_bottoms(device, rng, tree_pairs: int, gpu) -> dict:
+    """K3 through safegcd and through the Fermat ladder, in turns, at the
+    bottoms the main paths give it (``gcd_vs_ladder``): the one Z of a G1
+    MSM's ``to_affine`` (12 words), the division path's bottom (8), the
+    bottoms of the 2^AFF_LOG ``batch_affine_add`` of secp256k1 (8) and G1
+    (12), that of the 2^20 tree MSM's first halving level (12; its
+    ``tree_pairs`` pairs), and a 2^14 batch at 24 words."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.curves.instances import bls12_381, mnt4_753, secp256k1
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    def bottom(n):
+        plan = mk.level_plan(n)
+        return plan[-1][2] if plan else n
+
+    cases = [
+        ("msm_to_affine_one_lane", bls12_381.fq_spec, 1),
+        (f"division_2^{LOG_MAIN}_bottom", bls12_381.fr_spec, bottom(1 << LOG_MAIN)),
+        (f"batch_affine_add_2^{AFF_LOG}_secp256k1_bottom", secp256k1.fq_spec,
+         bottom(1 << AFF_LOG)),
+        (f"batch_affine_add_2^{AFF_LOG}_g1_bottom", bls12_381.fq_spec, bottom(1 << AFF_LOG)),
+        (f"tree_2^{MSM_LOGS[-1]}_level_0_bottom", bls12_381.fq_spec, bottom(tree_pairs)),
+        ("mnt4_753_fq_2^14", mnt4_753.fq_spec, 1 << 14),
+    ]
+    out = {}
+    for key, spec, n in cases:
+        a_np = gcd_operands(spec, n, rng) if n > 1 else random_limbs(spec, 1, rng)
+        out[key] = gcd_vs_ladder(spec, convert.from_reference(a_np, device))
+    return {"phase": "inverse_bottoms", "cases": out, "gpu": gpu}
+
+
 def run_scalar_mul_path(device, rng, rng_host, gpu):
     """BASELINE configs[2] through the entry points a user calls:
     ``entry.batch_affine_add`` on secp256k1 and BLS12-381 G1,
@@ -2814,6 +2966,12 @@ def main() -> int:
     t0 = time.time()
     scalar_counts, scalar_line, aff_main = run_scalar_mul_path(device, rng, rng_host, gpu)
     emit({**scalar_line, "seconds": time.time() - t0})
+    t0 = time.time()
+    bottoms = run_inverse_bottoms(device, rng, tree_main["affr_denom"]["shape"][0] // 2, gpu)
+    emit({**bottoms, "seconds": time.time() - t0})
+    bad = {k: v for k, v in bottoms["cases"].items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"safegcd and the ladder disagree at a path's bottom: {bad}")
 
     # launches: K1 and K5 as the product path counted them, K2-K4 as the
     # division path did (which also ran K1 and K5: see its own line), K8's
@@ -2838,7 +2996,7 @@ def main() -> int:
         ("mont_mul", "algebra_tpu/ops/mont_pallas.py:189", counts, k1, ntt_src),
         ("butterfly", "algebra_tpu/ops/mont_pallas.py:417", counts, k5, ntt_src),
         ("inv_prefix", "algebra_tpu/ops/mont_pallas.py:207", inv_counts, k2, inv_src),
-        ("inv_fermat", "algebra_tpu/ops/mont_pallas.py:238", inv_counts, k3, inv_src),
+        ("inv_gcd", "algebra_tpu/ops/mont_pallas.py:238", inv_counts, k3, inv_src),
         ("inv_backward", "algebra_tpu/ops/mont_pallas.py:221", inv_counts, k4, inv_src),
         ("jac_double", "algebra_tpu/ops/sw_pallas.py:111", glv_counts, glv_main["jac_double"],
          sw_src),

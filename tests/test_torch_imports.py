@@ -77,7 +77,8 @@ def test_kernel_sources_are_in_the_package():
     sources = {f"{src}.cu" for src in build.KERNEL_SOURCES}
     assert sources == {"mont_kernels.cu", "inverse_kernels.cu", "sw_kernels.cu",
                        "rows_kernels.cu", "msm_reduce_kernels.cu"}
-    headers = {"mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh", "msm_reduce.cuh"}
+    headers = {"mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh", "msm_reduce.cuh",
+               "inverse.cuh"}
     assert sources | headers <= set(os.listdir(csrc))
     assert set(build._HEADERS) == headers
     # one library per source and word count, named after a hash of the sources

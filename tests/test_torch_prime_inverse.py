@@ -280,3 +280,23 @@ def test_kernels_vs_plain_on_card(name):
     assert torch.equal(mk.batch_inverse(spec, a, 4, 64),
                        mk.batch_inverse_plain(spec, a, 4, 64))
     assert torch.equal(out.cpu(), mk.batch_inverse(spec, a.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SPECS))
+def test_inv_gcd_vs_plain_on_card(name):
+    """On a CUDA device: the safegcd bottom against the ladder's plain
+    version and the host, at n = 1 and on 4097 lanes with planted zeros
+    and the edge values 1, 2, p - 1, p - 2, (p - 1) / 2, R mod p, R^2 mod p."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA kernel has no interpret mode")
+    spec = SPECS[name]
+    p, R = spec.modulus, spec.R
+    vals, _ = seeded(spec, 4097, "gcd-card", zeros=(0, 700, 4096))
+    vals[1:8] = [1, 2, p - 1, p - 2, (p - 1) // 2, R % p, R * R % p]
+    a = convert.from_reference(batch_int_to_limbs(vals, spec.n_limbs), "cuda")
+    got = mk.inv_gcd(spec, a)
+    assert torch.equal(got, mk.inv_fermat_plain(spec, a))
+    assert ints(got) == host_inverse(spec, vals)
+    one = a[:, 5:6].contiguous()
+    assert torch.equal(mk.inv_gcd(spec, one), got[:, 5:6])
