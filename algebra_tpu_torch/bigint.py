@@ -74,3 +74,19 @@ def batch_limbs_to_int(arr):
     for i in range(rows.shape[0]):
         flat[i] = int.from_bytes(buf[i * nb : (i + 1) * nb], "little")
     return flat.reshape(shape).tolist()
+
+
+def signed_naf(x: int) -> list:
+    """Non-adjacent form digits of x >= 0 (little-endian, each in
+    {-1, 0, 1}), for exponentiation by a host-constant exponent in a group
+    whose inverse is cheap (the cyclotomic subgroup)."""
+    digits = []
+    while x != 0:
+        if x & 1:
+            d = 2 - (x % 4)  # 1 if x % 4 == 1 else -1
+            x -= d
+        else:
+            d = 0
+        digits.append(d)
+        x >>= 1
+    return digits

@@ -56,12 +56,34 @@ def points_from_reference(pt, device=None) -> tuple:
 
 def points_to_reference(pt) -> tuple:
     """A point's tensors -> numpy: limb arrays as ``to_reference``, a
-    bool mask as a numpy bool array."""
-    return tuple(c.detach().cpu().numpy() if c.dtype == torch.bool else to_reference(c)
-                 for c in pt)
+    bool mask as a numpy bool array, a tower coordinate as a tuple of
+    them."""
+    return tuple(_coord_to_reference(c) for c in pt)
 
 
-def _coord_from_reference(c, device: torch.device) -> torch.Tensor:
+def tower_from_reference(value, device=None):
+    """A tower value in the reference's form, nested tuples of uint32
+    [L, *batch] arrays (e.g. an Fq12 value: two tuples of three tuples of
+    two), -> the same nesting of int32 tensors on ``device``."""
+    device = torch.device(device if device is not None else config.default_device)
+    return _coord_from_reference(value, device)
+
+
+def tower_to_reference(value):
+    """A tower value's nested tuples of tensors -> nested tuples of numpy
+    uint32 arrays."""
+    return _coord_to_reference(value)
+
+
+def _coord_to_reference(c):
+    if isinstance(c, tuple):
+        return tuple(_coord_to_reference(x) for x in c)
+    return c.detach().cpu().numpy() if c.dtype == torch.bool else to_reference(c)
+
+
+def _coord_from_reference(c, device: torch.device):
+    if isinstance(c, tuple):
+        return tuple(_coord_from_reference(x, device) for x in c)
     if isinstance(c, torch.Tensor):
         return c.to(device)
     a = np.asarray(c)

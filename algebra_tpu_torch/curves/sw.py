@@ -1,4 +1,4 @@
-"""Short-Weierstrass curves over a prime field: batched Jacobian group law.
+"""Short-Weierstrass curves: batched Jacobian group law over any field kind.
 
 Counterpart of the JAX package's ``curves/sw.py``.  A *curve kind* is an
 object whose methods act on batched point values, the way field kinds act
@@ -16,9 +16,12 @@ of exceptional-case selects, so every output is the reference's, bit for
 bit.  Where the base is a prime field and a = 0 (BLS12-381 G1, secp256k1)
 the three laws run as the CUDA kernels of ``ops/sw_kernels.py`` (a CPU
 tensor takes their plain versions); for a != 0 they are composed from field
-operations.  The batched affine addition (``affine_add``) runs as kernels
-for any a.  Loops the reference runs as ``lax.scan`` are Python loops over
-launches.
+operations.  Over a tower base (BLS12-381 G2 over Fq2) they are the
+reference's fused "waves": each round of a formula is one
+``fields/dot.dot_multi`` call, one K17 launch.  The batched affine addition
+(``affine_add``) runs as kernels K9/K10 for any a over a prime base, and
+as the reference's composed body over a tower.  Loops the reference runs as
+``lax.scan`` are Python loops over launches.
 """
 
 from __future__ import annotations
@@ -26,8 +29,11 @@ from __future__ import annotations
 import torch
 
 from ..bigint import int_to_limbs
-from ..fields.host import HostPrime
+from ..fields import dot as dot_mod
+from ..fields.cubic import CubicExtField
+from ..fields.host_tower import HostCubicExt, HostPrime, HostQuadExt
 from ..fields.prime import PrimeField
+from ..fields.quadratic import QuadExtField
 from ..ops import sw_kernels
 
 
@@ -41,21 +47,22 @@ def scalar_bits_le(scalars: torch.Tensor) -> torch.Tensor:
 
 
 class SWCurve:
-    """y^2 = x^3 + a*x + b over a prime field kind."""
+    """y^2 = x^3 + a*x + b over a field kind (prime or a tower); a and b are
+    host values of the base (ints, or nested tuples over a tower)."""
 
-    def __init__(self, base: PrimeField, a_host: int, b_host: int, generator_host,
-                 cofactor: int, scalar_modulus: int, name: str = "SW", glv=None):
-        if not isinstance(base, PrimeField):
-            raise TypeError(f"the port's curves take a prime base field, not {base}")
+    def __init__(self, base, a_host, b_host, generator_host, cofactor: int,
+                 scalar_modulus: int, name: str = "SW", glv=None):
         self.base = base
         self.name = name
-        self.a_host = int(a_host)
-        self.b_host = int(b_host)
+        self._prime_base = isinstance(base, PrimeField)
+        self.a_host = int(a_host) if self._prime_base else a_host
+        self.b_host = int(b_host) if self._prime_base else b_host
         self.generator_host = generator_host
         self.cofactor = int(cofactor)
         self.scalar_modulus = int(scalar_modulus)
         self.cofactor_inv = pow(self.cofactor, -1, self.scalar_modulus)
-        self.a_is_zero = self.a_host % base.spec.modulus == 0
+        hf = self._hf()
+        self.a_is_zero = hf.equal(hf.add(self.a_host, hf.zero()), hf.zero())
         # GLV parameters (``ops/glv.py``): {"beta", "lam", "basis"}, or None
         self.glv = glv
         # optional fast subgroup checks installed by curve instances:
@@ -66,10 +73,15 @@ class SWCurve:
 
     @property
     def _kernels(self) -> bool:
-        """The group-law kernels serve a = 0 curves (all of them are over a
-        prime field here); the device of the tensors decides kernel or
-        plain version."""
-        return self.a_is_zero
+        """The group-law kernels serve a = 0 curves over a prime field; the
+        device of the tensors decides kernel or plain version."""
+        return self._prime_base and self.a_is_zero
+
+    @property
+    def _waves(self) -> bool:
+        """Over a tower with a small-integer multiplication tensor the group
+        law runs as the reference's ``dot_multi`` waves."""
+        return not self._prime_base and dot_mod.mul_tensor(self.base) is not None
 
     @property
     def device(self) -> torch.device:
@@ -133,6 +145,15 @@ class SWCurve:
             return sw_kernels.double(self.base.spec, P, out=out)
         B = self.base
         X1, Y1, Z1 = P
+        if self.a_is_zero and self._waves:
+            # dbl-2009-l flattened into three waves:
+            #   A = X^2, Bv = Y^2, D = 4*X*Bv,
+            #   X3 = 9*A^2 - 8*X*Bv, Z3 = 2*Y*Z, Y3 = 3*A*(D - X3) - 8*Bv^2
+            A, Bv, Z3 = dot_mod.dot_multi(B, [[(1, X1, X1)], [(1, Y1, Y1)], [(2, Y1, Z1)]])
+            D, X3 = dot_mod.dot_multi(B, [[(4, X1, Bv)], [(9, A, A), (-8, X1, Bv)]])
+            S = B.sub(D, X3)
+            (Y3,) = dot_mod.dot_multi(B, [[(3, A, S), (-8, Bv, Bv)]])
+            return sw_kernels.store((X3, Y3, Z3), out)
         XX = B.square(X1)
         YY = B.square(Y1)
         YYYY = B.square(YY)
@@ -153,6 +174,33 @@ class SWCurve:
         B = self.base
         X1, Y1, Z1 = P
         X2, Y2, Z2 = Q
+        if self._waves:
+            # add-2007-bl flattened into five waves.  With rho = S2 - S1
+            # (r = 2 rho), I = 4 H^2, J = H I, V = U1 I:
+            #   X3 = 4 rho^2 - 4 H^3 - 8 U1 H^2
+            #   Y3 = 2 rho (V - X3) - 8 S1 H^3
+            #   Z3 = 2 Z1 Z2 H
+            ZZ1, ZZ2, ZZ12, YZ12, YZ21 = dot_mod.dot_multi(B, [
+                [(1, Z1, Z1)], [(1, Z2, Z2)], [(1, Z1, Z2)], [(1, Y1, Z2)], [(1, Y2, Z1)]])
+            U1, S1, H, rho = dot_mod.dot_multi(B, [
+                [(1, X1, ZZ2)],
+                [(1, YZ12, ZZ2)],
+                [(1, X2, ZZ1), (-1, X1, ZZ2)],
+                [(1, YZ21, ZZ1), (-1, YZ12, ZZ2)],
+            ])
+            HH, Z3 = dot_mod.dot_multi(B, [[(1, H, H)], [(2, ZZ12, H)]])
+            X3, V, J4 = dot_mod.dot_multi(B, [
+                [(4, rho, rho), (-4, H, HH), (-8, U1, HH)],
+                [(4, U1, HH)],
+                [(4, H, HH)],
+            ])
+            S5 = B.sub(V, X3)
+            (Y3,) = dot_mod.dot_multi(B, [[(2, rho, S5), (-2, S1, J4)]])
+            same = B.is_zero(H) & B.is_zero(rho)
+            res = self.select(same, self.double(P), (X3, Y3, Z3))
+            res = self.select(self.is_zero(Q), P, res)
+            res = self.select(self.is_zero(P), Q, res)
+            return sw_kernels.store(res, out)
         Z1Z1 = B.square(Z1)
         Z2Z2 = B.square(Z2)
         U1 = B.mul(X1, Z2Z2)
@@ -181,6 +229,29 @@ class SWCurve:
         B = self.base
         X1, Y1, Z1 = P
         X2, Y2, inf2 = aff
+        if self._waves:
+            # madd-2007-bl flattened into five waves.  With rho = S2 - Y1
+            # (r = 2 rho), I = 4 HH, J = H I, V = X1 I:
+            #   X3 = 4 rho^2 - 4 H HH - 8 X1 HH
+            #   Y3 = 2 rho (V - X3) - 8 Y1 H HH
+            #   Z3 = 2 Z1 H
+            ZZ, YZ = dot_mod.dot_multi(B, [[(1, Z1, Z1)], [(1, Y2, Z1)]])
+            U2, S2 = dot_mod.dot_multi(B, [[(1, X2, ZZ)], [(1, YZ, ZZ)]])
+            H = B.sub(U2, X1)
+            rho = B.sub(S2, Y1)
+            HH, Z3 = dot_mod.dot_multi(B, [[(1, H, H)], [(2, Z1, H)]])
+            X3, V, J4 = dot_mod.dot_multi(B, [
+                [(4, rho, rho), (-4, H, HH), (-8, X1, HH)],
+                [(4, X1, HH)],
+                [(4, H, HH)],
+            ])
+            S5 = B.sub(V, X3)
+            (Y3,) = dot_mod.dot_multi(B, [[(2, rho, S5), (-2, Y1, J4)]])
+            same = B.is_zero(H) & B.is_zero(rho)
+            res = self.select(same, self.double(P), (X3, Y3, Z3))
+            res = self.select(inf2, P, res)
+            res = self.select(self.is_zero(P), self.from_affine(aff), res)
+            return sw_kernels.store(res, out)
         Z1Z1 = B.square(Z1)
         U2 = B.mul(X2, Z1Z1)
         S2 = B.mul(Y2, B.mul(Z1, Z1Z1))
@@ -211,8 +282,11 @@ class SWCurve:
         ``self.base.batch_inverse``: about three products a lane, so an
         affine sum costs ~7 products against ~19 for the Jacobian mixed add.
         ``neg1``/``neg2``: optional bool masks negating the y of the
-        corresponding operand first.  Kernels K9, K10 around ``inv_fn``
-        (``sw_kernels.affine_add``), whatever the batch shape."""
+        corresponding operand first.  Over a prime base: kernels K9, K10
+        around ``inv_fn`` (``sw_kernels.affine_add``), whatever the batch
+        shape; over a tower the reference's composed body."""
+        if not self._prime_base:
+            return self._affine_add_composed(P, Q, inv_fn, neg1, neg2)
         a_mont = None
         if not self.a_is_zero:
             spec = self.base.spec
@@ -220,6 +294,37 @@ class SWCurve:
                 self.a_host * spec.R % spec.modulus, spec.n_limbs))
         return sw_kernels.affine_add(self.base.spec, a_mont, P, Q, inv_fn,
                                      neg1=neg1, neg2=neg2)
+
+    def _affine_add_composed(self, P, Q, inv_fn, neg1, neg2):
+        """``affine_add`` from field operations: the tangent or the chord
+        and every exceptional case selected, in the reference's order."""
+        B = self.base
+        x1, y1, i1 = P
+        x2, y2, i2 = Q
+        if neg1 is not None:
+            y1 = B.select(neg1, B.neg(y1), y1)
+        if neg2 is not None:
+            y2 = B.select(neg2, B.neg(y2), y2)
+        d = B.sub(x2, x1)
+        same_x = B.is_zero(d)
+        dbl = same_x & B.equal(y1, y2) & ~B.is_zero(y1)
+        opp = same_x & ~dbl
+        x1sq = B.square(x1)
+        three_x1sq = B.add(B.add(x1sq, x1sq), x1sq)
+        if not self.a_is_zero:
+            three_x1sq = B.add(three_x1sq, B.constant(self.a_host, B.batch_shape(x1)))
+        num = B.select(dbl, three_x1sq, B.sub(y2, y1))
+        denom = B.select(dbl, B.add(y1, y1), d)
+        degenerate = i1 | i2 | opp
+        shape = B.batch_shape(x1)
+        denom = B.select(degenerate, B.one(shape), denom)
+        lam = B.mul(num, inv_fn(denom))
+        x3 = B.sub(B.sub(B.square(lam), x1), x2)
+        y3 = B.sub(B.mul(lam, B.sub(x1, x3)), y1)
+        x3 = B.select(i1, x2, B.select(i2, x1, x3))
+        y3 = B.select(i1, y2, B.select(i2, y1, y3))
+        inf3 = torch.where(i1, i2, torch.where(i2, i1, opp))
+        return (x3, y3, inf3)
 
     # ------------------------------------------------------- representation
     def from_affine(self, aff):
@@ -335,10 +440,11 @@ class SWCurve:
 
     # ------------------------------------------------------------- host I/O
     def from_host(self, points):
-        """Host affine points ((x, y) ints, or None for infinity) -> affine
-        batch [n] on the curve's device."""
-        xs = [0 if pt is None else pt[0] for pt in points]
-        ys = [1 if pt is None else pt[1] for pt in points]
+        """Host affine points ((x, y) host values of the base, or None for
+        infinity) -> affine batch [n] on the curve's device."""
+        hf = self._hf()
+        xs = [hf.zero() if pt is None else pt[0] for pt in points]
+        ys = [hf.one() if pt is None else pt[1] for pt in points]
         infs = [pt is None for pt in points]
         return (self.base.from_int(xs), self.base.from_int(ys),
                 torch.tensor(infs, dtype=torch.bool, device=self.device))
@@ -358,9 +464,9 @@ class SWCurve:
         return [self.host_mul(self.generator_host, rng.randrange(1, self.scalar_modulus))
                 for _ in range(n)]
 
-    # host-side group law (Python ints) for oracles
-    def _hf(self) -> HostPrime:
-        return HostPrime(self.base.spec.modulus)
+    # host-side group law (Python ints, tuples over a tower) for oracles
+    def _hf(self):
+        return _host_field_of(self.base)
 
     def host_add(self, P, Q):
         if P is None:
@@ -371,7 +477,7 @@ class SWCurve:
         x1, y1 = P
         x2, y2 = Q
         if hf.equal(x1, x2):
-            if hf.equal(y1, y2) and not hf.equal(y1, 0):
+            if hf.equal(y1, y2) and not hf.equal(y1, hf.zero()):
                 return self.host_double(P)
             return None
         lam = hf.mul(hf.sub(y2, y1), hf.inv(hf.sub(x2, x1)))
@@ -384,11 +490,12 @@ class SWCurve:
             return None
         hf = self._hf()
         x1, y1 = P
-        if hf.equal(y1, 0):
+        if hf.equal(y1, hf.zero()):
             return None
-        num = hf.add(hf.mul(3, hf.mul(x1, x1)), hf.from_base_prime(self.a_host))
-        lam = hf.mul(num, hf.inv(hf.mul(2, y1)))
-        x3 = hf.sub(hf.mul(lam, lam), hf.mul(2, x1))
+        a = hf.from_base_prime(self.a_host) if self._prime_base else self.a_host
+        num = hf.add(hf.mul(hf.from_base_prime(3), hf.mul(x1, x1)), a)
+        lam = hf.mul(num, hf.inv(hf.mul(hf.from_base_prime(2), y1)))
+        x3 = hf.sub(hf.mul(lam, lam), hf.mul(hf.from_base_prime(2), x1))
         y3 = hf.sub(hf.mul(lam, hf.sub(x1, x3)), y1)
         return (x3, y3)
 
@@ -407,3 +514,14 @@ class SWCurve:
 
     def __repr__(self):
         return f"SWCurve({self.name}, device={self.device})"
+
+
+def _host_field_of(base):
+    """Host (Python big-int) mirror of a field kind."""
+    if isinstance(base, PrimeField):
+        return HostPrime(base.spec.modulus)
+    if isinstance(base, QuadExtField):
+        return HostQuadExt(_host_field_of(base.base), base.nonresidue_host)
+    if isinstance(base, CubicExtField):
+        return HostCubicExt(_host_field_of(base.base), base.nonresidue_host)
+    raise TypeError(f"no host mirror for {base}")

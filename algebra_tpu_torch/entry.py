@@ -1,6 +1,7 @@
 """The port's entry points: polynomial product, exact quotient, G1 MSM,
 batched affine point addition, scalar multiplication (GLV on secp256k1,
-double-and-add on Jubjub) and fixed-base multiplication.
+double-and-add on Jubjub), fixed-base multiplication, and the BLS12-381
+pairing (a batch of pairings, the multi-pairing, prepared G2 points).
 
 ``poly_product`` is the counterpart of the JAX package's flagship step
 (BLS12-381 Fr: fft, fft, pointwise multiply, inverse fft, scale by 1/n) —
@@ -21,6 +22,7 @@ import torch
 from . import config, convert
 from .curves.instances import bls12_381, ed_on_bls12_381, secp256k1
 from .ops import fixed_base, msm
+from .pairing.bls12 import G2Prepared
 from .poly.dense import DensePolynomial
 from .poly.domain import Radix2EvaluationDomain
 from .poly.evaluations import Evaluations
@@ -167,3 +169,59 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return convert.from_reference(x, device)
+
+
+def _affine(curve, pts, device):
+    """An affine batch on ``device`` from the reference's affine triple or
+    from a list of host points."""
+    if isinstance(pts, list):
+        return curve.from_host(pts)
+    return convert.points_from_reference(pts, device)
+
+
+def _pairing_inputs(ctx, p, q, device):
+    """G1 and G2 affine batches (or prepared G2 points) on ``device``."""
+    return (_affine(ctx.g1, p, device),
+            q if isinstance(q, G2Prepared) else _affine(ctx.g2, q, device))
+
+
+def pairing(p, q, device=None):
+    """e(p[i], q[i]) lane by lane over BLS12-381: a batched Miller loop and
+    one batched final exponentiation.
+
+    p: G1 affine points, the reference's triple (x, y, inf) (x, y uint32
+    [24, n] Montgomery-form Fq limbs, inf bool [n]) or a list of host points
+    ((x, y) ints, None for infinity).  q: G2 affine points the same way
+    (x, y as (c0, c1) pairs of [24, n] arrays; host points ((x0, x1),
+    (y0, y1))), or ``prepare_g2``'s result.  Returns the Fq12 values as
+    nested tuples ((c0, c1, c2), (c0, c1, c2)) of (c0, c1) int32 [24, n]
+    Montgomery-form tensors on ``device``; a lane with a point at infinity
+    gives 1.  Same device rule as ``poly_product``.
+    """
+    device = _device_for(device, "pairing")
+    ctx = bls12_381.pairing(device)
+    p, q = _pairing_inputs(ctx, p, q, device)
+    if isinstance(q, G2Prepared):
+        return ctx.final_exponentiation(ctx.miller_loop_prepared(p, q))
+    return ctx.pairing(p, q)
+
+
+def multi_pairing(p, q, device=None):
+    """prod_i e(p[i], q[i]) over BLS12-381: the lanes' Miller loops, their
+    product, and ONE final exponentiation.  p, q as for ``pairing`` (q not
+    prepared), batch [n].  Returns one Fq12 value (int32 [24] tensors)."""
+    device = _device_for(device, "multi_pairing")
+    ctx = bls12_381.pairing(device)
+    p, q = _pairing_inputs(ctx, p, q, device)
+    if isinstance(q, G2Prepared):
+        raise ValueError("multi_pairing takes G2 points, not prepared ones")
+    return ctx.multi_pairing(p, q)
+
+
+def prepare_g2(q, device=None) -> G2Prepared:
+    """The line coefficients of the Miller loop for a batch of G2 points
+    (given as for ``pairing``), to pair with many G1 batches of the same
+    shape: ``pairing(p, prepare_g2(q))`` equals ``pairing(p, q)``."""
+    device = _device_for(device, "prepare_g2")
+    ctx = bls12_381.pairing(device)
+    return ctx.prepare_g2(_affine(ctx.g2, q, device))

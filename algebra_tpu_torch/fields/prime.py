@@ -78,6 +78,9 @@ class PrimeField(Field):
     def batch_inverse(self, a, axis=0):
         return mont.batch_inverse(self.spec, a, axis=axis)
 
+    def frobenius(self, a, power: int = 1):
+        return a  # x^p = x in Fp
+
     def mul_by_u32(self, a, k: int):
         return mont.mul_by_u32(self.spec, a, k)
 

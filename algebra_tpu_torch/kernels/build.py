@@ -25,8 +25,9 @@ from .. import config
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 # one library each, for each word count
 KERNEL_SOURCES = ("mont_kernels", "inverse_kernels", "sw_kernels", "rows_kernels",
-                  "msm_reduce_kernels")
-_HEADERS = ("mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh", "msm_reduce.cuh", "inverse.cuh")
+                  "msm_reduce_kernels", "dot_kernels")
+_HEADERS = ("mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh", "msm_reduce.cuh", "inverse.cuh",
+            "dot.cuh")
 WORD_COUNTS = (8, 12, 24)
 
 _libs: dict[tuple[str, int], ctypes.CDLL] = {}
@@ -160,6 +161,11 @@ def _signatures() -> dict[str, dict[str, list]]:
             "msm_words": [],
             "bucket_reduce_inner_launch": [vp] * 9 + [sz, ci, words_p, u32, words_p, vp],
             "reduce_fold_launch": [vp] * 10 + [ci] * 5 + [words_p, u32, words_p, vp],
+        },
+        "dot_kernels": {
+            "dot_words": [],
+            "dot_max_row": [],
+            "mont_dot_launch": [vp, vp, vp, sz, ci, ci, vp, vp, words_p, u32, vp],
         },
         "rows_kernels": {
             "rows_words": [],

@@ -7,7 +7,7 @@ values stay below 2^16, so the sign bit of int32 never matters.  Binary ops
 auto-align mixed batch ranks by inserting singleton axes right after the
 limb axis (the limb-major analogue of right-aligned broadcasting).
 
-``mul``, ``square`` and ``batch_inverse`` go through the CUDA kernels for
+``mul``, ``square``, ``dot_stacked`` and ``batch_inverse`` go through the CUDA kernels for
 CUDA tensors and through their plain versions for CPU tensors
 (``ops/mont_kernels.py``); ``add``/``sub``/``neg`` are plain tensor code on
 either device.
@@ -17,8 +17,10 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
+from ..bigint import LIMB_BITS
 from ..fields.spec import FieldSpec
 from . import mont_kernels
 
@@ -184,6 +186,68 @@ def batch_inverse(spec: FieldSpec, a: torch.Tensor, axis: int = 0) -> torch.Tens
         return a.clone()
     flat = a.reshape(a.shape[0], -1).contiguous()
     return mont_kernels.batch_inverse(spec, flat).reshape(a.shape)
+
+
+# ---------------------------------------------------------------------------
+# weighted sums of products (kernel K17)
+# ---------------------------------------------------------------------------
+
+
+def dot_mass_limit(spec: FieldSpec) -> int:
+    """Largest sum_k |W[o, k]| that ``dot_stacked`` takes: the reference's
+    column-headroom limit for its 16-bit-limb accumulators (every column
+    below 2^31 through one shared reduction), 681 for BLS12-381 Fq.  The
+    kernel needs no such limit; it is kept so that ``fields/dot.dot_multi``
+    takes its generic path at exactly the call sites where the reference
+    does."""
+    L = spec.n_limbs
+    colmax = 2 * L * (1 << LIMB_BITS)
+    slack = (L + 1) * (1 << (LIMB_BITS + 1)) + (1 << (LIMB_BITS - 1))
+    return ((1 << 31) - slack) // colmax
+
+
+def dot_stacked(spec: FieldSpec, A: torch.Tensor, B: torch.Tensor, W,
+                square_mask=None) -> torch.Tensor:
+    """sum_k W[o, k] * A[k] * B[k] * R^-1 mod p for every output row o.
+
+    A, B: int32 [L, K, *batch] Montgomery-form elements (< p).
+    W: host integers [n_out, K] (negative allowed), each row's
+    sum_k |W[o, k]| at most ``dot_mass_limit(spec)``.
+    square_mask: optional host bool [K] marking pairs whose operands are
+    the same value (A[k] = B[k]); the kernel squares there.
+    Returns int32 [L, n_out, *batch], canonical: the same words as the
+    reference's single-reduction form.  Kernel K17 on a CUDA tensor
+    (``mont_kernels.dot``), ``dot_plain`` on a CPU tensor."""
+    K = A.shape[1]
+    W = np.asarray(W, np.int64)
+    if W.ndim != 2 or W.shape[1] != K:
+        raise ValueError(f"weights must be [n_out, {K}], got {W.shape}")
+    wmass = int(np.abs(W).sum(axis=1).max()) if K and W.shape[0] else 0
+    if wmass > dot_mass_limit(spec):
+        raise ValueError(f"dot weight mass {wmass} exceeds limit {dot_mass_limit(spec)}")
+    return mont_kernels.dot(spec, A, B, W, square_mask)
+
+
+def sum_of_products(spec: FieldSpec, a_list, b_list) -> torch.Tensor:
+    """sum_i a_i * b_i as one ``dot_stacked`` (one launch), or a mul/add
+    fold where the term count exceeds ``dot_mass_limit``."""
+    k = len(a_list)
+    if 0 < k <= dot_mass_limit(spec):
+        L = spec.n_limbs
+        batch = torch.broadcast_shapes(*[x.shape[1:] for x in (*a_list, *b_list)])
+
+        def bc(x):
+            return expand(x, len(batch)).expand((L,) + tuple(batch))
+
+        A = torch.stack([bc(a) for a in a_list], dim=1)
+        B = torch.stack([bc(b) for b in b_list], dim=1)
+        mask = [a is b for a, b in zip(a_list, b_list)]
+        return dot_stacked(spec, A, B, np.ones((1, k), np.int64), square_mask=mask)[:, 0]
+    acc = None
+    for a, b in zip(a_list, b_list):
+        t = mul(spec, a, b)
+        acc = t if acc is None else add(spec, acc, t)
+    return acc
 
 
 def mul_by_u32(spec: FieldSpec, a: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """The CUDA field kernels: wrappers, plain versions, launch counters.
 
-Counterpart of the JAX package's ``ops/mont_pallas.py``.  Five kernels, all
-CUDA C++ over the device functions of ``csrc/mont.cuh``: two for the NTT
-path (``csrc/mont_kernels.cu``) and three for batched inversion
-(``csrc/inverse_kernels.cu``):
+Counterpart of the JAX package's ``ops/mont_pallas.py``, and of its
+``ops/mont.dot_stacked`` fusion.  The kernels are CUDA C++ over the device
+functions of ``csrc/mont.cuh``: two for the NTT path
+(``csrc/mont_kernels.cu``), those of batched inversion
+(``csrc/inverse_kernels.cu``) and the weighted sums of products that every
+tower product runs (``csrc/dot_kernels.cu``):
 
 ``mont_mul``  (wrapper ``mul``)
     Replaces the TPU kernel ``_mul_kernel`` (``ops/mont_pallas.py:189``,
@@ -69,6 +71,21 @@ path (``csrc/mont_kernels.cu``) and three for batched inversion
     zero where the input was zero, so nothing but the arrays named above
     touches memory.
 
+``mont_dot``  (wrapper ``dot``, run by ``ops/mont.dot_stacked``)
+    K17, which replaces no Pallas kernel: the reference's ``dot_stacked``
+    (``ops/mont.py:536``) is one XLA fusion, the op that makes every tower
+    product one kernel there.  out[:, o] = sum_k W[o, k] A[:, k] B[:, k]
+    R^-1 mod p for a small signed [n_out, K] weight matrix, one thread per
+    (lane, output row) over ``csrc/dot_kernels.cu`` and ``csrc/dot.cuh``:
+    the row's non-zero weights in shared memory, one product an entry
+    (the squaring where a pair is a square), |w| times it by
+    double-and-add, added or subtracted.  Canonical outputs make any order
+    of summation give the reference's words.  Bound: it must read A and B
+    and write out, (2 K + n_out) L 4 bytes a lane, for K products; at an
+    Fp12 product the bytes bound it.  A product two rows share is
+    recomputed in each; one reduction a row, as the reference does, is
+    for a later redesign.
+
 Dispatch has no switch: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises.  The plain versions do the same
 arithmetic on 16-bit limbs in int64 and are device-agnostic, so they can
@@ -94,7 +111,7 @@ launches = {"mont_mul": 0, "butterfly": 0, "inv_prefix": 0, "inv_fermat": 0,
             "inv_gcd": 0, "inv_backward": 0, "jac_double": 0, "jac_add": 0,
             "jac_madd": 0, "jac_madd_round": 0, "bucket_reduce_inner": 0, "reduce_fold": 0,
             "aff_denom": 0, "aff_post": 0, "affr_denom": 0, "affr_post": 0, "pack": 0, "unpack": 0,
-            "negate_y": 0, "expand_units": 0}
+            "negate_y": 0, "expand_units": 0, "mont_dot": 0}
 
 # Blocked inversion: a level folds at most INV_GROUP rows into one, and
 # levels are added until at most INV_BOTTOM elements are left for the
@@ -696,3 +713,141 @@ def batch_inverse(spec: FieldSpec, a: torch.Tensor, group: int = INV_GROUP,
     _check_flat(spec, a)
     return _blocked_inverse(spec, a, group, bottom, inv_prefix, inv_gcd,
                             inv_backward)
+
+
+# --------------------------------------------------------------------------
+# weighted sums of products (K17)
+# --------------------------------------------------------------------------
+
+
+def _dot_weights(W, square_mask, K: int):
+    """(int64 [n_out, K] weights, bool [K] square mask) as numpy."""
+    import numpy as np
+
+    W = np.asarray(W, np.int64)
+    if W.ndim != 2 or W.shape[1] != K:
+        raise ValueError(f"weights must be [n_out, {K}], got {W.shape}")
+    sq = (np.zeros(K, bool) if square_mask is None
+          else np.asarray(square_mask, bool).reshape(K))
+    return W, sq
+
+
+def dot_plain(spec: FieldSpec, A: torch.Tensor, B: torch.Tensor, W,
+              square_mask=None) -> torch.Tensor:
+    """sum_k W[o, k] * A[:, k] * B[:, k] * R^-1 mod p for every output row
+    o, on 16-bit limbs in int64 (any device).  A, B: int32 [L, K, *batch];
+    W: integers [n_out, K] (negative allowed); ``square_mask``: bool [K],
+    pairs whose product is A[k]^2 (B[k] is not read there).  The K
+    canonical products are formed once; a row's weighted sum of them is
+    taken limb by limb (signed, below 2^26 in magnitude), made
+    non-negative by adding p times the row's negative weight mass, carried,
+    and brought below p by subtracting p 2^j where it fits, j from the top
+    of the row mass down.  Returns int32 [L, n_out, *batch]."""
+    import numpy as np
+
+    K = A.shape[1]
+    W, sq = _dot_weights(W, square_mask, K)
+    n_out = W.shape[0]
+    L, p = spec.n_limbs, spec.modulus
+    batch = tuple(A.shape[2:])
+    if K == 0 or n_out == 0:
+        return torch.zeros((L, n_out) + batch, dtype=torch.int32, device=A.device)
+    if sq.any():
+        m = torch.as_tensor(sq, device=A.device).reshape((1, K) + (1,) * len(batch))
+        B = torch.where(m, A, B)
+    T = mul_plain(spec, A, B).to(torch.int64)  # [L, K, *batch]
+    neg_mass = np.maximum(-W, 0).sum(axis=1)
+    n_bits = max(int(np.abs(W).sum(axis=1).max()).bit_length(), 1)
+    width = L + (n_bits + 15) // 16 + 1
+    rows = []
+    for o in range(n_out):
+        ks = np.nonzero(W[o])[0]
+        w = torch.as_tensor(W[o, ks], device=A.device).reshape((1, ks.size) + (1,) * len(batch))
+        s = (T[:, torch.as_tensor(ks, device=A.device)] * w).sum(dim=1)
+        offset = torch.tensor(_limbs_of(int(neg_mass[o]) * p, width), dtype=torch.int64,
+                              device=A.device).reshape((width,) + (1,) * len(batch))
+        rows.append(torch.cat([s, torch.zeros_like(s[: width - L])], dim=0) + offset)
+    v, _ = _chain(torch.stack(rows, dim=1))  # [width, n_out, *batch], < 2^n_bits p
+    for j in reversed(range(n_bits)):
+        pj = torch.tensor(_limbs_of(p << j, width), dtype=torch.int64, device=A.device)
+        d, borrow = _sub_limbs(v, pj.reshape((width,) + (1,) * (v.ndim - 1)))
+        v = torch.where(borrow != 0, v, d)
+    return v[:L].to(torch.int32)
+
+
+def _limbs_of(x: int, L: int) -> list:
+    return [(x >> (LIMB_BITS * i)) & LIMB_MASK for i in range(L)]
+
+
+# compressed weight tables by (weights, square mask), and their device copies
+_dot_tables: dict = {}
+
+
+def dot_table(W, square_mask, K: int):
+    """The kernel's form of a weight matrix: (row starts int32 [n_out + 1],
+    entries int32 [nnz, 2]) as numpy, entry = (pair index, with bit 30 set
+    for a square pair; the weight), rows in order.  Cached by value."""
+    import numpy as np
+
+    W, sq = _dot_weights(W, square_mask, K)
+    key = (W.shape, W.tobytes(), sq.tobytes())
+    hit = _dot_tables.get(key)
+    if hit is not None:
+        return hit
+    if np.abs(W).max(initial=0) >= 1 << 31:
+        raise ValueError("dot weights must fit in 32 bits")
+    rows, ks = np.nonzero(W)
+    codes = ks.astype(np.int64) | (sq[ks].astype(np.int64) << 30)
+    ent = np.stack([codes, W[rows, ks]], axis=1).astype(np.int32)
+    starts = np.zeros(W.shape[0] + 1, np.int32)
+    np.add.at(starts, rows + 1, 1)
+    starts = np.cumsum(starts).astype(np.int32)
+    hit = {"row_start": starts, "entries": np.ascontiguousarray(ent),
+           "max_row": int(np.diff(starts).max(initial=0)), "devices": {}}
+    _dot_tables[key] = hit
+    return hit
+
+
+def dot(spec: FieldSpec, A: torch.Tensor, B: torch.Tensor, W,
+        square_mask=None) -> torch.Tensor:
+    """K17: sum_k W[o, k] * A[:, k] * B[:, k] * R^-1 mod p, int32
+    [L, n_out, *batch] from A, B int32 [L, K, *batch] (equal shapes) and
+    integer weights W [n_out, K]; ``square_mask`` [K] marks pairs with
+    A[k] = B[k].  CUDA tensors go through the kernel (strided operands are
+    copied first), CPU tensors through ``dot_plain``."""
+    device = _check_elems(spec, A, B)
+    if A.shape != B.shape or A.ndim < 2:
+        raise ValueError(f"dot takes A, B [L, K, *batch] of one shape, got "
+                         f"{tuple(A.shape)} and {tuple(B.shape)}")
+    if device.type == "cpu":
+        return dot_plain(spec, A, B, W, square_mask)
+    from ..kernels import build
+
+    K = A.shape[1]
+    table = dot_table(W, square_mask, K)
+    n_out = table["row_start"].shape[0] - 1
+    batch = tuple(A.shape[2:])
+    n = math.prod(batch)
+    out = torch.empty((spec.n_limbs, n_out) + batch, dtype=torch.int32, device=device)
+    if n == 0 or n_out == 0:
+        return out
+    lib = build.library("dot_kernels", spec.n_words)
+    if table["max_row"] > lib.dot_max_row():
+        raise ValueError(f"a row of {table['max_row']} weights exceeds the kernel's "
+                         f"{lib.dot_max_row()}")
+    dev = table["devices"].get(device)
+    if dev is None:
+        dev = (torch.from_numpy(table["row_start"]).to(device),
+               torch.from_numpy(table["entries"]).to(device))
+        table["devices"][device] = dev
+    # the contiguous copies stay referenced here until the launch is queued
+    a_c, b_c = A.contiguous(), B.contiguous()
+    with torch.cuda.device(device):
+        code = lib.mont_dot_launch(
+            a_c.data_ptr(), b_c.data_ptr(), out.data_ptr(), n, K, n_out,
+            dev[0].data_ptr(), dev[1].data_ptr(), _p_words_arg(spec), spec.inv32,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    launches["mont_dot"] += 1
+    _raise_on_error(code, "mont_dot")
+    return out

@@ -42,8 +42,8 @@ with extra one-level stages while they are cheaper than lockstep rounds
 (``_extra_stages``); the few slots left finish in capped lockstep rounds
 of K8 over unpacked rows (K14) and a compacted drain.  The tree needs a
 prime base field: over any other it would need the reference's composed
-level (unpack, the tower body of ``SWCurve.affine_add``, pack), which is
-not ported (the port has no towers yet), and ``msm`` raises.  The result is
+level (unpack, the tower body of ``SWCurve.affine_add``, pack); that level
+is not ported (the G2 MSM waits), and ``msm`` raises.  The result is
 the same point as the lockstep path's, reached by another order of
 additions, so the two compare in affine.
 
@@ -429,7 +429,8 @@ def _batched_inv_fn(base):
 def _rows_level_fn(curve):
     """One halving level on packed rows (``sw_kernels.affine_add_rows``) for
     a prime base field; None otherwise (the reference composes unpack,
-    ``SWCurve.affine_add`` over the tower, pack there: not ported)."""
+    ``SWCurve.affine_add`` over the tower, pack there: that level is not
+    ported)."""
     B = curve.base
     if not isinstance(B, PrimeField):
         return None

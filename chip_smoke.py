@@ -37,9 +37,14 @@ host, (13) runs BASELINE configs[2]: ``entry.batch_affine_add`` on 2^20
 secp256k1 and 2^20 G1 pairs, ``entry.scalar_mul`` by GLV on 2^18
 secp256k1 points against plain double-and-add, wNAF, ``entry.fixed_base_msm``
 on 2^20 scalars and ``entry.scalar_mul`` on 2^16 Jubjub points, each
-against the host, and (14) times the bottom of the batched inversion (K3,
+against the host, (14) times the bottom of the batched inversion (K3,
 safegcd) against the Fermat ladder it replaced, at the bottoms those
-paths give it.  Phases 7-8 run the lockstep bucket path and 11 the tree,
+paths give it, and (15) runs BASELINE configs[3], the BLS12-381 pairing:
+its kernel K17 (weighted sums of Montgomery products, every tower
+product) against its plain version at three word counts, then
+``entry.pairing``, ``multi_pairing`` and ``prepare_g2`` at 4096 and 256
+pairs, e(g1, g2) against a pinned value, bilinearity on every lane, lanes
+at infinity, two lanes against the CPU.  Phases 7-8 run the lockstep bucket path and 11 the tree,
 whatever ``config.msm_affine_tree`` says.  Every comparison is bit-exact (tolerance
 0: outputs are canonical integers).  One JSON object per line; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -2827,6 +2832,311 @@ def run_scalar_mul_path(device, rng, rng_host, gpu):
     return counts, line, kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the BLS12-381 pairing (BASELINE configs[3]) and its kernel K17
+# ---------------------------------------------------------------------------
+
+PAIRING_LOGS = (12, 8)  # entry.pairing at 4096 pairs, then 256
+PAIRING_POOL = 64  # distinct G1 and G2 points made on the host, tiled
+DOT_WIDE_LOG = 16  # K17's widest check, n = 2^16
+PAIRING_FAMILIES = ("mont_dot", "mont_mul", "inv_prefix", "inv_gcd", "inv_backward")
+
+# e(g1, g2) over BLS12-381: the canonical Fq coordinates of Fq12's
+# ((c0.c0, c0.c1), (c1.c0, c1.c1), (c2.c0, c2.c1)), c0 then c1, as the JAX
+# package computes them (algebra_tpu.curves.instances.bls12_381.pairing()
+# .pairing on the two generators, run on the CPU).
+GT_G1_G2 = (
+    ((0x1250EBD871FC0A92A7B2D83168D0D727272D441BEFA15C503DD8E90CE98DB3E7B6D194F60839C508A84305AACA1789B6,
+      0x089A1C5B46E5110B86750EC6A532348868A84045483C92B7AF5AF689452EAFABF1A8943E50439F1D59882A98EAA0170F),
+     (0x1368BB445C7C2D209703F239689CE34C0378A68E72A6B3B216DA0E22A5031B54DDFF57309396B38C881C4C849EC23E87,
+      0x193502B86EDB8857C273FA075A50512937E0794E1E65A7617C90D8BD66065B1FFFE51D7A579973B1315021EC3C19934F),
+     (0x01B2F522473D171391125BA84DC4007CFBF2F8DA752F7C74185203FCCA589AC719C34DFFBBAAD8431DAD1C1FB597AAA5,
+      0x018107154F25A764BD3C79937A45B84546DA634B8F6BE14A8061E55CCEBA478B23F7DACAA35C8CA78BEAE9624045B4B6)),
+    ((0x19F26337D205FB469CD6BD15C3D5A04DC88784FBB3D0B2DBDEA54D43B2B73F2CBB12D58386A8703E0F948226E47EE89D,
+      0x06FBA23EB7C5AF0D9F80940CA771B6FFD5857BAAF222EB95A7D2809D61BFE02E1BFD1B68FF02F0B8102AE1C2D5D5AB1A),
+     (0x11B8B424CD48BF38FCEF68083B0B0EC5C81A93B330EE1A677D0D15FF7B984E8978EF48881E32FAC91B93B47333E2BA57,
+      0x03350F55A7AEFCD3C31B4FCB6CE5771CC6A0E9786AB5973320C806AD360829107BA810C5A09FFDD9BE2291A0C25A99A2),
+     (0x04C581234D086A9902249B64728FFD21A189E87935A954051C7CDBA7B3872629A4FAFC05066245CB9108F0242D0FE3EF,
+      0x0F41E58663BF08CF068672CBD01A7EC73BACA4D72CA93544DEFF686BFD6DF543D48EAA24AFE47E1EFDE449383B676631)),
+)
+
+
+def path_dot_weights() -> dict:
+    """The weight matrices (W, square mask) K17 gets on the pairing path,
+    by name: an Fp12 product, an Fp12 square, the line product
+    ``mul_by_014``, the Miller loop's G2 doubling step's last wave and its
+    add step's last wave.  Taken from ``mont_kernels.dot``'s calls in one
+    run of each operation on the CPU at one lane."""
+    from algebra_tpu_torch.curves.instances import bls12_381
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    F12, F2 = bls12_381.fq12("cpu"), bls12_381.fq2("cpu")
+    ctx = bls12_381.pairing("cpu")
+    rng = random.Random(SEED)
+    p = bls12_381.P
+
+    def r2():
+        return F2.from_int([(rng.randrange(p), rng.randrange(p))])
+
+    a12 = (tuple(r2() for _ in range(3)), tuple(r2() for _ in range(3)))
+    b12 = (tuple(r2() for _ in range(3)), tuple(r2() for _ in range(3)))
+    r = (r2(), r2(), r2())
+    runs = {"fp12_mul": lambda: F12.mul(a12, b12),
+            "fp12_square": lambda: F12.square(a12),
+            "fp12_mul_by_014": lambda: F12.mul_by_014(a12, r[0], r[1], r[2]),
+            "g2_double_step": lambda: ctx._double_step(r, (1,)),
+            "g2_add_step": lambda: ctx._add_step(r, (r[1], r[2]))}
+    out = {}
+    orig = mk.dot
+    for name, run in runs.items():
+        calls = []
+
+        def record(spec, A, B, W, square_mask=None):
+            calls.append((np.asarray(W, np.int64), list(square_mask or [False] * A.shape[1])))
+            return orig(spec, A, B, W, square_mask)
+
+        mk.dot = record
+        try:
+            run()
+        finally:
+            mk.dot = orig
+        out[name] = calls[-1]
+    return out
+
+
+def dot_operands(spec, K: int, n: int, square_mask, rng: np.random.Generator, device):
+    """A, B int32 [L, K, n] on the card, random below p but for the first
+    lanes, which cross 0, 1, p - 1 and one in Montgomery form; B = A on
+    square pairs."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.bigint import batch_int_to_limbs
+
+    L, p = spec.n_limbs, spec.modulus
+    edge = batch_int_to_limbs([0, 1, p - 1, spec.R % p], L)
+    A = random_limbs(spec, K * n, rng).reshape(L, K, n)
+    B = random_limbs(spec, K * n, rng).reshape(L, K, n)
+    m = min(n, 4)
+    for k in range(K):
+        A[:, k, :m] = edge[:, (np.arange(m) + k) % 4]
+        B[:, k, :m] = edge[:, (np.arange(m) * 3 + k) % 4]
+    sq = np.asarray(square_mask, bool)
+    B[:, sq] = A[:, sq]
+    return convert.from_reference(A, device), convert.from_reference(B, device)
+
+
+def mass_limit_weights(spec, K: int, n_out: int, rng: np.random.Generator) -> np.ndarray:
+    """Random signed weights, every row at the field's mass limit."""
+    from algebra_tpu_torch.ops import mont
+
+    limit = mont.dot_mass_limit(spec)
+    W = rng.integers(-3, 4, size=(n_out, K))
+    W[:, 0] = 0
+    for o in range(n_out):
+        rest = int(np.abs(W[o]).sum())
+        W[o, 0] = (limit - rest) * (1 if o % 2 else -1)
+    return W
+
+
+def dot_host_oracle(spec, A, B, W, lanes: int) -> int:
+    """Wrong words of K17 on its first ``lanes`` lanes against Python ints."""
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    L, K, _ = A.shape
+    p = spec.modulus
+    r_inv = pow(spec.R, -1, p)
+    a = [limbs_to_ints(A[:, k, :lanes].cpu().numpy()) for k in range(K)]
+    b = [limbs_to_ints(B[:, k, :lanes].cpu().numpy()) for k in range(K)]
+    got = mk.dot(spec, A[:, :, :lanes].contiguous(), B[:, :, :lanes].contiguous(), W)
+    bad = 0
+    for o in range(W.shape[0]):
+        want = [sum(int(W[o, k]) * a[k][i] * b[k][i] for k in range(K)) * r_inv % p
+                for i in range(lanes)]
+        bad += sum(g != w for g, w in zip(limbs_to_ints(got[:, o].cpu().numpy()), want))
+    return bad
+
+
+def check_dot_kernels(rng, device) -> list:
+    """K17 against ``dot_plain`` bit for bit at 8, 12 and 24 words: the
+    pairing path's weight matrices and random signed weights at the mass
+    limit, square masks, edge operands, n = 1 and 4097 (and 2^16 for the
+    Fp12 product and the random weights at 12 words), and operands given
+    as views the wrapper copies; 16 lanes of the Fp12 product against
+    Python ints."""
+    from algebra_tpu_torch.curves.instances import bls12_381, mnt4_753
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    weights = path_dot_weights()
+    cases = []
+    for spec in (bls12_381.fr_spec, bls12_381.fq_spec, mnt4_753.fq_spec):
+        mats = dict(weights)
+        K = 20
+        mats["random_at_mass_limit"] = (mass_limit_weights(spec, K, 6, rng),
+                                        [k % 5 == 1 for k in range(K)])
+        for name, (W, sq) in mats.items():
+            sizes = [1, 4097]
+            if spec is bls12_381.fq_spec and name in ("fp12_mul", "random_at_mass_limit"):
+                sizes.append(1 << DOT_WIDE_LOG)
+            for n in sizes:
+                A, B = dot_operands(spec, W.shape[1], n, sq, rng, device)
+                if n == 4097:  # views: a lane slice of a wider array
+                    A = torch.cat([A, A], dim=2)[:, :, :n]
+                    B = torch.cat([B, B], dim=2)[:, :, :n]
+                got = mk.dot(spec, A, B, W, sq)
+                torch.cuda.synchronize()
+                bad, err = mismatches(got, mk.dot_plain(spec, A, B, W, sq))
+                case = {"field": spec.name, "words": spec.n_words, "weights": name,
+                        "n_out": int(W.shape[0]), "K": int(W.shape[1]), "n": n,
+                        "square_pairs": int(np.sum(sq)), "mismatches": bad,
+                        "max_abs_err": err}
+                if name == "fp12_mul" and spec is bls12_381.fq_spec and n == 4097:
+                    case["host_oracle_lanes"] = 16
+                    case["host_oracle_mismatches"] = dot_host_oracle(spec, A, B, W, 16)
+                cases.append(case)
+                del A, B, got
+    return cases
+
+
+def dot_kernel_at(device, rng) -> dict:
+    """K17 at an Fp12 product over 4096 lanes (W = 12): against its plain
+    version, device ms, plain ms, and its bound: the bytes of A, B and the
+    output, and one product for each of the K pairs a lane."""
+    from algebra_tpu_torch.curves.instances import bls12_381
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    spec = bls12_381.fq_spec
+    W, sq = path_dot_weights()["fp12_mul"]
+    n, L = 1 << PAIRING_LOGS[0], spec.n_limbs
+    K, n_out = W.shape[1], W.shape[0]
+    A, B = dot_operands(spec, K, n, sq, rng, device)
+    want, plain_ms = wall_ms(lambda: mk.dot_plain(spec, A, B, W, sq))
+    _, plain_ms = wall_ms(lambda: mk.dot_plain(spec, A, B, W, sq))
+    bad, err = mismatches(mk.dot(spec, A, B, W, sq), want)
+    n_sq = int(np.sum(sq))
+    mads = n * ((K - n_sq) * mads_per_product(spec) + n_sq * mads_per_square(spec))
+    n_bytes = n * (2 * K + n_out) * L * 4
+    entries = int(np.count_nonzero(W))
+    return with_bound({"mismatches": bad, "max_abs_err": err, "plain_ms": plain_ms,
+                       "ms": device_ms(lambda: mk.dot(spec, A, B, W, sq), 20),
+                       "shape": [L, K, n], "n_out": n_out, "weight_entries": entries,
+                       "products_a_lane_computed": entries, "products_a_lane_needed": K,
+                       "field": spec.name}, n_bytes, mads)
+
+
+def pairing_inputs(n: int, pools):
+    """Host points for n lanes: lane i < n/2 pairs a P_j with Q_j, lane
+    n/2 + i pairs P_j with a Q_j (j = i mod the pool), so the halves must
+    agree lane for lane; lanes 0 and n/2 have P at infinity, 1 and n/2 + 1
+    Q at infinity."""
+    ps, qs, aps, aqs = pools
+    m = len(ps)
+    half = n // 2
+    P = [aps[i % m] for i in range(half)] + [ps[i % m] for i in range(half)]
+    Q = [qs[i % m] for i in range(half)] + [aqs[i % m] for i in range(half)]
+    for i in (0, half):
+        P[i] = None
+    for i in (1, half + 1):
+        Q[i] = None
+    return P, Q
+
+
+def pairing_at_scale(log_n: int, pools, device) -> tuple:
+    """``entry.pairing``, ``multi_pairing`` and ``prepare_g2`` on n = 2^log_n
+    pairs, every check of the path: (launch counts of the first pairing
+    call, the line)."""
+    from algebra_tpu_torch import convert, entry
+    from algebra_tpu_torch.curves.instances import bls12_381
+    from algebra_tpu_torch.fields.field import tree_map
+    from algebra_tpu_torch.pairing.common import field_prod
+
+    n = 1 << log_n
+    half = n // 2
+    g1c, g2c = bls12_381.g1("cpu"), bls12_381.g2("cpu")
+    P_host, Q_host = pairing_inputs(n, pools)
+    p_aff = convert.points_from_reference(g1c.from_host(P_host), device)
+    q_aff = convert.points_from_reference(g2c.from_host(Q_host), device)
+    F12 = bls12_381.fq12(device)
+    ctx = bls12_381.pairing(device)
+
+    e, counts = launches_of(lambda: entry.pairing(p_aff, q_aff, device=device))
+    idle = [k for k in ("mont_dot", "mont_mul", "inv_gcd") if not counts.get(k)]
+    if idle:
+        raise AssertionError(f"a pairing call launched no {idle}: {counts}")
+    vals = F12.to_int(e)
+    one = F12.to_int(F12.one((1,)))[0]
+    planted = {0, 1, half, half + 1}
+    checks = {
+        "bilinear_lanes_disagreeing": sum(vals[i] != vals[half + i] for i in range(half)),
+        "lanes_equal_to_one_outside_infinity": sum(
+            vals[i] == one for i in range(n) if i not in planted),
+        "infinity_lanes_not_one": sum(vals[i] != one for i in planted),
+    }
+    cpu = entry.pairing([P_host[2], P_host[half + 2]], [Q_host[2], Q_host[half + 2]],
+                        device="cpu")
+    checks["lanes_differing_from_the_cpu"] = sum(
+        g != w for g, w in zip(bls12_381.fq12("cpu").to_int(cpu), [vals[2], vals[half + 2]]))
+    neg_P = [None if pt is None else (pt[0], bls12_381.P - pt[1]) for pt in P_host]
+    p_neg = convert.points_from_reference(g1c.from_host(neg_P), device)
+    cat = lambda u, v: tree_map(lambda x, y: torch.cat([x, y], dim=-1), u, v)  # noqa: E731
+    cancel = entry.multi_pairing(cat(p_aff, p_neg), cat(q_aff, q_aff), device=device)
+    checks["multi_pairing_with_negations_is_one"] = F12.to_int(cancel) == one
+    multi = entry.multi_pairing(p_aff, q_aff, device=device)
+    checks["multi_pairing_equals_product_of_lanes"] = (
+        F12.to_int(multi) == F12.to_int(field_prod(F12, e)))
+    prepared = entry.prepare_g2(q_aff, device=device)
+    checks["prepared_lanes_differing"] = sum(
+        g != w for g, w in zip(F12.to_int(entry.pairing(p_aff, prepared, device=device)), vals))
+
+    f = ctx.miller_loop(p_aff, q_aff)
+    times = {name: median_ms(fn)[0] for name, fn in (
+        ("miller_loop_ms", lambda: ctx.miller_loop(p_aff, q_aff)),
+        ("final_exponentiation_ms", lambda: ctx.final_exponentiation(f)),
+        ("multi_pairing_ms", lambda: entry.multi_pairing(p_aff, q_aff, device=device)),
+        ("prepare_g2_ms", lambda: entry.prepare_g2(q_aff, device=device)),
+        ("pairing_prepared_ms", lambda: entry.pairing(p_aff, prepared, device=device)))}
+    torch.cuda.reset_peak_memory_stats()
+    times["pairing_ms"], times["pairing_ms_runs"] = median_ms(
+        lambda: entry.pairing(p_aff, q_aff, device=device))
+    times["pairing_ms_a_pair"] = times["pairing_ms"] / n
+    peak = torch.cuda.max_memory_allocated()
+    line = {"n": n, "checks": checks, **times, "launches": counts,
+            "launches_by_family": {k: counts.get(k, 0) for k in PAIRING_FAMILIES},
+            "peak_memory_gb": peak / 1e9,
+            "profiled": profile_call(lambda: entry.pairing(p_aff, q_aff, device=device),
+                                     PAIRING_FAMILIES, top=8)}
+    bad = [k for k, v in checks.items() if (not v if isinstance(v, bool) else v)]
+    if bad:
+        raise AssertionError(f"the pairing path failed {bad}: {checks}")
+    return counts, line
+
+
+def run_pairing_path(device, rng, rng_host, gpu) -> tuple:
+    """BASELINE configs[3] through the entry points: e(g1, g2) against the
+    pinned value on the card, then ``pairing_at_scale`` at 4096 and 256
+    pairs; then K17 at the Fp12 product's shape.  Returns (the 4096-pair
+    pairing's launch counts, the line, K17's row)."""
+    from algebra_tpu_torch import entry
+    from algebra_tpu_torch.curves.instances import bls12_381
+
+    g1c, g2c = bls12_381.g1("cpu"), bls12_381.g2("cpu")
+    gen = entry.pairing([g1c.generator_host], [g2c.generator_host], device=device)
+    pinned = bls12_381.fq12(device).to_int(gen)[0] == GT_G1_G2
+    if not pinned:
+        raise AssertionError("e(g1, g2) differs from the pinned value")
+    a = rng_host.randrange(1, bls12_381.R)
+    ps, qs = host_pool(g1c, rng_host, PAIRING_POOL), host_pool(g2c, rng_host, PAIRING_POOL)
+    pools = (ps, qs, [g1c.host_mul(pt, a) for pt in ps], [g2c.host_mul(pt, a) for pt in qs])
+    line = {"phase": "pairing_path", "e_g1_g2_equals_pinned": pinned, "pool": PAIRING_POOL}
+    counts = None
+    for log_n in PAIRING_LOGS:
+        c, line[f"pairs_2^{log_n}"] = pairing_at_scale(log_n, pools, device)
+        counts = counts or c
+    k17 = dot_kernel_at(device, rng)
+    if k17["mismatches"]:
+        raise AssertionError(f"K17 disagrees at the Fp12 product's shape: {k17}")
+    line.update({"kernel_shape": k17, "gpu": gpu})
+    return counts, line, k17
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2972,6 +3282,16 @@ def main() -> int:
     bad = {k: v for k, v in bottoms["cases"].items() if v["mismatches"]}
     if bad:
         raise AssertionError(f"safegcd and the ladder disagree at a path's bottom: {bad}")
+    t0 = time.time()
+    dot_cases = check_dot_kernels(rng, device)
+    emit({"phase": "dot_kernel_cases", "cases": dot_cases, "seconds": time.time() - t0,
+          "gpu": gpu})
+    failed = [c for c in dot_cases if c["mismatches"] or c.get("host_oracle_mismatches")]
+    if failed:
+        raise AssertionError(f"K17 disagrees with its plain version: {failed}")
+    t0 = time.time()
+    pairing_counts, pairing_line, k17 = run_pairing_path(device, rng, rng_host, gpu)
+    emit({**pairing_line, "seconds": time.time() - t0})
 
     # launches: K1 and K5 as the product path counted them, K2-K4 as the
     # division path did (which also ran K1 and K5: see its own line), K8's
@@ -2981,13 +3301,15 @@ def main() -> int:
     # also ran K2-K4 and the tail's kernels: see its own line), the general
     # K6 and K7 as the 2^18 GLV scalar_mul did (and times at its operands),
     # K9/K10 as one 2^20 secp256k1 entry.batch_affine_add without masks did
-    # (K2-K4 too; the scalar-mul path's line has each call's counts)
+    # (K2-K4 too; the scalar-mul path's line has each call's counts), K17 as
+    # one 4096-pair entry.pairing did (and K1, K3 there: see its own line)
     ntt_src = {"route": "cuda", "source": "algebra_tpu_torch/csrc/mont_kernels.cu",
                "library_ms": None, "gpu": gpu}
     inv_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/inverse_kernels.cu"}
     sw_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/sw_kernels.cu"}
     rows_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/rows_kernels.cu"}
     reduce_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/msm_reduce_kernels.cu"}
+    dot_src = {**ntt_src, "source": "algebra_tpu_torch/csrc/dot_kernels.cu"}
     glv = scalar_line["glv_scalar_mul_secp256k1"]
     glv_counts, glv_main = glv["glv"]["launches"], glv["kernel_shapes"]
     for name in ("jac_add", "jac_double"):
@@ -3026,6 +3348,8 @@ def main() -> int:
          tree_main["negate_y"], rows_src),
         ("expand_units", "algebra_tpu/ops/rows_pallas.py:166", tree_counts,
          tree_main["expand_units"], rows_src),
+        # no Pallas kernel: the XLA fusion of the reference's dot_stacked
+        ("mont_dot", "algebra_tpu/ops/mont.py:536", pairing_counts, k17, dot_src),
     ]
     emit({"kernels": [
         {"name": name, "replaces": replaces, "launches": path_counts.get(name, 0),

@@ -56,7 +56,12 @@ def test_package_imports_without_jax_or_cuda():
             "algebra_tpu_torch.curves.instances.secp256k1",
             "algebra_tpu_torch.curves.instances.ed_on_bls12_381",
             "algebra_tpu_torch.ops.glv", "algebra_tpu_torch.ops.wnaf",
-            "algebra_tpu_torch.ops.fixed_base", "algebra_tpu_torch.entry"} <= names
+            "algebra_tpu_torch.ops.fixed_base", "algebra_tpu_torch.entry",
+            "algebra_tpu_torch.fields.dot", "algebra_tpu_torch.fields.host_tower",
+            "algebra_tpu_torch.fields.quadratic", "algebra_tpu_torch.fields.cubic",
+            "algebra_tpu_torch.fields.fp12", "algebra_tpu_torch.fields.element",
+            "algebra_tpu_torch.pairing", "algebra_tpu_torch.pairing.common",
+            "algebra_tpu_torch.pairing.bls12", "algebra_tpu_torch.pairing.gt"} <= names
     assert "DEFAULT cuda" in out.stdout
 
 
@@ -65,7 +70,9 @@ def test_no_source_file_imports_jax():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "algebra_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 26
+    assert len(files) > 34
+    pairing = os.path.join(REPO, "algebra_tpu_torch", "pairing")
+    assert {os.path.join(pairing, n) for n in ("common.py", "bls12.py", "gt.py")} <= set(files)
     for path in files:
         assert not (_imports_of(path) & forbidden), path
 
@@ -76,13 +83,13 @@ def test_kernel_sources_are_in_the_package():
 
     sources = {f"{src}.cu" for src in build.KERNEL_SOURCES}
     assert sources == {"mont_kernels.cu", "inverse_kernels.cu", "sw_kernels.cu",
-                       "rows_kernels.cu", "msm_reduce_kernels.cu"}
+                       "rows_kernels.cu", "msm_reduce_kernels.cu", "dot_kernels.cu"}
     headers = {"mont.cuh", "launch.cuh", "sw.cuh", "rows.cuh", "msm_reduce.cuh",
-               "inverse.cuh"}
+               "inverse.cuh", "dot.cuh"}
     assert sources | headers <= set(os.listdir(csrc))
     assert set(build._HEADERS) == headers
     # one library per source and word count, named after a hash of the sources
     paths = {build.library_path(src, w)
              for src in build.KERNEL_SOURCES for w in build.WORD_COUNTS}
-    assert len(paths) == 15 and all("_build" in p for p in paths)
+    assert len(paths) == 18 and all("_build" in p for p in paths)
     assert set(build._signatures()) == set(build.KERNEL_SOURCES)
