@@ -1,7 +1,8 @@
 """The port's entry points: polynomial product, exact quotient, G1 MSM,
 batched affine point addition, scalar multiplication (GLV on secp256k1,
 double-and-add on Jubjub), fixed-base multiplication, and the BLS12-381
-pairing (a batch of pairings, the multi-pairing, prepared G2 points).
+and BN254 pairings (a batch of pairings, the multi-pairing, prepared G2
+points).
 
 ``poly_product`` is the counterpart of the JAX package's flagship step
 (BLS12-381 Fr: fft, fft, pointwise multiply, inverse fft, scale by 1/n) —
@@ -20,9 +21,10 @@ from __future__ import annotations
 import torch
 
 from . import config, convert
-from .curves.instances import bls12_381, ed_on_bls12_381, secp256k1
+from .curves.instances import bls12_381, bn254, ed_on_bls12_381, secp256k1
 from .ops import fixed_base, msm
 from .pairing.bls12 import G2Prepared
+from .pairing.bn import BnG2Prepared
 from .poly.dense import DensePolynomial
 from .poly.domain import Radix2EvaluationDomain
 from .poly.evaluations import Evaluations
@@ -69,18 +71,33 @@ def poly_quotient(num, den, device=None) -> torch.Tensor:
     return num_e.div(den_e).interpolate().coeffs
 
 
-def g1_msm(bases, scalars, device=None):
-    """sum_i scalars[i] * bases[i] over BLS12-381 G1.
+# The pairing-friendly curves of ``g1_msm`` and the pairing entry points:
+# each name's instance module and the type of its prepared G2 points.
+_PAIRING_CURVES = {"bls12_381": (bls12_381, G2Prepared), "bn254": (bn254, BnG2Prepared)}
+
+
+def _pairing_curve(curve: str, caller: str):
+    if curve not in _PAIRING_CURVES:
+        raise ValueError(f"{caller}: curve must be one of {sorted(_PAIRING_CURVES)}, "
+                         f"not {curve!r}")
+    return _PAIRING_CURVES[curve]
+
+
+def g1_msm(bases, scalars, curve: str = "bls12_381", device=None):
+    """sum_i scalars[i] * bases[i] over G1 of ``curve``, "bls12_381" or
+    "bn254".
 
     bases: the affine triple in the reference's format, (x, y, inf): x, y
-    uint32 [24, n] Montgomery-form Fq limbs, inf bool [n] (numpy arrays or
-    tensors).  scalars: uint32 [16, n] canonical limbs, each below r.
-    Returns the Jacobian point (x, y, z), int32 [24] each, on ``device``.
-    Same device rule as ``poly_product``.
+    uint32 [L, n] Montgomery-form Fq limbs (L = 24 for BLS12-381, 16 for
+    BN254), inf bool [n] (numpy arrays or tensors).  scalars: uint32
+    [16, n] canonical limbs, each below r.  Returns the Jacobian point
+    (x, y, z), int32 [L] each, on ``device``.  Same device rule as
+    ``poly_product``.
     """
+    inst, _ = _pairing_curve(curve, "g1_msm")
     device = _device_for(device, "g1_msm")
-    curve = bls12_381.g1(device)
-    return msm.msm(curve, convert.points_from_reference(bases, device),
+    c = inst.g1(device)
+    return msm.msm(c, convert.points_from_reference(bases, device),
                    _as_tensor(scalars, device))
 
 
@@ -179,49 +196,60 @@ def _affine(curve, pts, device):
     return convert.points_from_reference(pts, device)
 
 
-def _pairing_inputs(ctx, p, q, device):
-    """G1 and G2 affine batches (or prepared G2 points) on ``device``."""
+def _pairing_inputs(ctx, prepared_type, p, q, device, caller: str):
+    """G1 and G2 affine batches (or prepared G2 points) on ``device``; a
+    prepared batch of another curve is refused."""
+    other = tuple(t for _, t in _PAIRING_CURVES.values() if t is not prepared_type)
+    if isinstance(q, other):
+        raise ValueError(f"{caller}: the prepared G2 points are of another curve")
     return (_affine(ctx.g1, p, device),
-            q if isinstance(q, G2Prepared) else _affine(ctx.g2, q, device))
+            q if isinstance(q, prepared_type) else _affine(ctx.g2, q, device))
 
 
-def pairing(p, q, device=None):
-    """e(p[i], q[i]) lane by lane over BLS12-381: a batched Miller loop and
-    one batched final exponentiation.
+def pairing(p, q, curve: str = "bls12_381", device=None):
+    """e(p[i], q[i]) lane by lane over ``curve``, "bls12_381" or "bn254": a
+    batched Miller loop and one batched final exponentiation.
 
     p: G1 affine points, the reference's triple (x, y, inf) (x, y uint32
-    [24, n] Montgomery-form Fq limbs, inf bool [n]) or a list of host points
-    ((x, y) ints, None for infinity).  q: G2 affine points the same way
-    (x, y as (c0, c1) pairs of [24, n] arrays; host points ((x0, x1),
-    (y0, y1))), or ``prepare_g2``'s result.  Returns the Fq12 values as
-    nested tuples ((c0, c1, c2), (c0, c1, c2)) of (c0, c1) int32 [24, n]
-    Montgomery-form tensors on ``device``; a lane with a point at infinity
-    gives 1.  Same device rule as ``poly_product``.
+    [L, n] Montgomery-form Fq limbs, L = 24 for BLS12-381 and 16 for BN254,
+    inf bool [n]) or a list of host points ((x, y) ints, None for
+    infinity).  q: G2 affine points the same way (x, y as (c0, c1) pairs of
+    [L, n] arrays; host points ((x0, x1), (y0, y1))), or ``prepare_g2``'s
+    result for the same curve.  Returns the Fq12 values as nested tuples
+    ((c0, c1, c2), (c0, c1, c2)) of (c0, c1) int32 [L, n] Montgomery-form
+    tensors on ``device``; a lane with a point at infinity gives 1.  Same
+    device rule as ``poly_product``.
     """
+    inst, prepared_type = _pairing_curve(curve, "pairing")
     device = _device_for(device, "pairing")
-    ctx = bls12_381.pairing(device)
-    p, q = _pairing_inputs(ctx, p, q, device)
-    if isinstance(q, G2Prepared):
+    ctx = inst.pairing(device)
+    p, q = _pairing_inputs(ctx, prepared_type, p, q, device, "pairing")
+    if isinstance(q, prepared_type):
         return ctx.final_exponentiation(ctx.miller_loop_prepared(p, q))
     return ctx.pairing(p, q)
 
 
-def multi_pairing(p, q, device=None):
-    """prod_i e(p[i], q[i]) over BLS12-381: the lanes' Miller loops, their
-    product, and ONE final exponentiation.  p, q as for ``pairing`` (q not
-    prepared), batch [n].  Returns one Fq12 value (int32 [24] tensors)."""
+def multi_pairing(p, q, curve: str = "bls12_381", device=None):
+    """prod_i e(p[i], q[i]) over ``curve``, "bls12_381" or "bn254": the
+    lanes' Miller loops, their product, and ONE final exponentiation.  p, q
+    as for ``pairing`` (q not prepared), batch [n].  Returns one Fq12 value
+    (int32 [L] tensors)."""
+    inst, prepared_type = _pairing_curve(curve, "multi_pairing")
     device = _device_for(device, "multi_pairing")
-    ctx = bls12_381.pairing(device)
-    p, q = _pairing_inputs(ctx, p, q, device)
-    if isinstance(q, G2Prepared):
+    ctx = inst.pairing(device)
+    p, q = _pairing_inputs(ctx, prepared_type, p, q, device, "multi_pairing")
+    if isinstance(q, prepared_type):
         raise ValueError("multi_pairing takes G2 points, not prepared ones")
     return ctx.multi_pairing(p, q)
 
 
-def prepare_g2(q, device=None) -> G2Prepared:
-    """The line coefficients of the Miller loop for a batch of G2 points
-    (given as for ``pairing``), to pair with many G1 batches of the same
-    shape: ``pairing(p, prepare_g2(q))`` equals ``pairing(p, q)``."""
+def prepare_g2(q, curve: str = "bls12_381", device=None):
+    """The line coefficients of the Miller loop for a batch of G2 points of
+    ``curve`` (given as for ``pairing``), to pair with many G1 batches of
+    the same shape: ``pairing(p, prepare_g2(q, curve), curve)`` equals
+    ``pairing(p, q, curve)``.  A ``G2Prepared`` for BLS12-381, a
+    ``BnG2Prepared`` for BN254."""
+    inst, _ = _pairing_curve(curve, "prepare_g2")
     device = _device_for(device, "prepare_g2")
-    ctx = bls12_381.pairing(device)
+    ctx = inst.pairing(device)
     return ctx.prepare_g2(_affine(ctx.g2, q, device))

@@ -44,7 +44,12 @@ its kernel K17 (weighted sums of Montgomery products, every tower
 product) against its plain version at three word counts, then
 ``entry.pairing``, ``multi_pairing`` and ``prepare_g2`` at 4096 and 256
 pairs, e(g1, g2) against a pinned value, bilinearity on every lane, lanes
-at infinity, two lanes against the CPU.  Phases 7-8 run the lockstep bucket path and 11 the tree,
+at infinity, two lanes against the CPU, and (16) runs BN254 (``curve=
+"bn254"``): the kernels of its path against their plain versions at its
+8-word field, e(g1, g2) pinned, the pairing entry points at 4096 and 256
+pairs with eight lanes against the CPU, and ``entry.g1_msm`` on 2^20
+scalars against the host oracle, with the kernels' rows at its shapes.
+Phases 7-8 run the lockstep bucket path and 11 the tree,
 whatever ``config.msm_affine_tree`` says.  Every comparison is bit-exact (tolerance
 0: outputs are canonical integers).  One JSON object per line; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1628,10 +1633,11 @@ def run_msm_path(device, rng, rng_host, gpu):
                          f"vs_cpu_2^{MSM_SHARED}": shared, "gpu": gpu}, round_k, reduce_k
 
 
-def msm_vs_cpu(curve, aff256, sc_np) -> dict:
+def msm_vs_cpu(curve, aff256, sc_np, cpu=None) -> dict:
     """The lockstep MSM of the same bases and scalars on the card and on the
-    CPU (the kernels' plain versions): the same adds in the same order, so
-    the same words in Jacobian coordinates."""
+    CPU (the kernels' plain versions; ``cpu`` the curve there, BLS12-381 G1
+    when None): the same adds in the same order, so the same words in
+    Jacobian coordinates."""
     from algebra_tpu_torch import convert
     from algebra_tpu_torch.curves.instances import bls12_381
     from algebra_tpu_torch.ops import msm
@@ -1641,7 +1647,7 @@ def msm_vs_cpu(curve, aff256, sc_np) -> dict:
                   for a in aff256)
     got = msm.msm(curve, bases, convert.from_reference(sc_np, curve.device))
     plan = dict(msm.stats)
-    cpu = bls12_381.g1("cpu")
+    cpu = bls12_381.g1("cpu") if cpu is None else cpu
     t0 = time.time()
     want = msm.msm(cpu, tuple(a.cpu() for a in bases), convert.from_reference(sc_np, "cpu"))
     cpu_s = time.time() - t0
@@ -1674,7 +1680,8 @@ def msm_phase_times(curve, aff256, sc_np, device):
     x, y, inf = (a.repeat(1, n // 256) if a.ndim == 2 else a.repeat(n // 256)
                  for a in aff256)
     sc = convert.from_reference(sc_np, device)
-    c, W = msm.plan_windows(255, msm.default_window_size(n), n, tree=False)
+    c, W = msm.plan_windows(curve.scalar_modulus.bit_length(), msm.default_window_size(n), n,
+                            tree=False)
     out = {}
     (order_s, start, counts), out["recode_ms"] = wall_ms(lambda: msm.recode(sc, inf, c, W))
     table, out["table_ms"] = wall_ms(lambda: msm.signed_table(curve, x, y))
@@ -2861,19 +2868,27 @@ GT_G1_G2 = (
 )
 
 
-def path_dot_weights() -> dict:
-    """The weight matrices (W, square mask) K17 gets on the pairing path,
-    by name: an Fp12 product, an Fp12 square, the line product
-    ``mul_by_014``, the Miller loop's G2 doubling step's last wave and its
-    add step's last wave.  Taken from ``mont_kernels.dot``'s calls in one
-    run of each operation on the CPU at one lane."""
-    from algebra_tpu_torch.curves.instances import bls12_381
+def pairing_instance(curve: str):
+    """The port's instance module of a pairing-friendly curve by name."""
+    from algebra_tpu_torch.curves.instances import bls12_381, bn254
+
+    return {"bls12_381": bls12_381, "bn254": bn254}[curve]
+
+
+def path_dot_weights(curve: str = "bls12_381") -> dict:
+    """The weight matrices (W, square mask) K17 gets on the pairing path
+    of ``curve``, by name: an Fp12 product, an Fp12 square, the line
+    product (``mul_by_014`` on an M-twist, ``mul_by_034`` on a D-twist),
+    the Miller loop's G2 doubling step's last wave and its add step's last
+    wave.  Taken from ``mont_kernels.dot``'s calls in one run of each
+    operation on the CPU at one lane."""
     from algebra_tpu_torch.ops import mont_kernels as mk
 
-    F12, F2 = bls12_381.fq12("cpu"), bls12_381.fq2("cpu")
-    ctx = bls12_381.pairing("cpu")
+    inst = pairing_instance(curve)
+    F12, F2 = inst.fq12("cpu"), inst.fq2("cpu")
+    ctx = inst.pairing("cpu")
     rng = random.Random(SEED)
-    p = bls12_381.P
+    p = inst.P
 
     def r2():
         return F2.from_int([(rng.randrange(p), rng.randrange(p))])
@@ -2881,9 +2896,11 @@ def path_dot_weights() -> dict:
     a12 = (tuple(r2() for _ in range(3)), tuple(r2() for _ in range(3)))
     b12 = (tuple(r2() for _ in range(3)), tuple(r2() for _ in range(3)))
     r = (r2(), r2(), r2())
+    line = "fp12_mul_by_014" if ctx.twist_type == "M" else "fp12_mul_by_034"
+    line_fn = F12.mul_by_014 if ctx.twist_type == "M" else F12.mul_by_034
     runs = {"fp12_mul": lambda: F12.mul(a12, b12),
             "fp12_square": lambda: F12.square(a12),
-            "fp12_mul_by_014": lambda: F12.mul_by_014(a12, r[0], r[1], r[2]),
+            line: lambda: line_fn(a12, r[0], r[1], r[2]),
             "g2_double_step": lambda: ctx._double_step(r, (1,)),
             "g2_add_step": lambda: ctx._add_step(r, (r[1], r[2]))}
     out = {}
@@ -2996,15 +3013,14 @@ def check_dot_kernels(rng, device) -> list:
     return cases
 
 
-def dot_kernel_at(device, rng) -> dict:
-    """K17 at an Fp12 product over 4096 lanes (W = 12): against its plain
-    version, device ms, plain ms, and its bound: the bytes of A, B and the
-    output, and one product for each of the K pairs a lane."""
-    from algebra_tpu_torch.curves.instances import bls12_381
+def dot_kernel_at(device, rng, curve: str = "bls12_381") -> dict:
+    """K17 at an Fp12 product of ``curve`` over 4096 lanes: against its
+    plain version, device ms, plain ms, and its bound: the bytes of A, B
+    and the output, and one product for each of the K pairs a lane."""
     from algebra_tpu_torch.ops import mont_kernels as mk
 
-    spec = bls12_381.fq_spec
-    W, sq = path_dot_weights()["fp12_mul"]
+    spec = pairing_instance(curve).fq_spec
+    W, sq = path_dot_weights(curve)["fp12_mul"]
     n, L = 1 << PAIRING_LOGS[0], spec.n_limbs
     K, n_out = W.shape[1], W.shape[0]
     A, B = dot_operands(spec, K, n, sq, rng, device)
@@ -3019,6 +3035,7 @@ def dot_kernel_at(device, rng) -> dict:
                        "ms": device_ms(lambda: mk.dot(spec, A, B, W, sq), 20),
                        "shape": [L, K, n], "n_out": n_out, "weight_entries": entries,
                        "products_a_lane_computed": entries, "products_a_lane_needed": K,
+                       "max_row_weight_mass": int(np.abs(W).sum(axis=1).max()),
                        "field": spec.name}, n_bytes, mads)
 
 
@@ -3039,25 +3056,27 @@ def pairing_inputs(n: int, pools):
     return P, Q
 
 
-def pairing_at_scale(log_n: int, pools, device) -> tuple:
-    """``entry.pairing``, ``multi_pairing`` and ``prepare_g2`` on n = 2^log_n
-    pairs, every check of the path: (launch counts of the first pairing
-    call, the line)."""
+def pairing_at_scale(log_n: int, pools, device, curve: str = "bls12_381",
+                     cpu_lanes: int = 1) -> tuple:
+    """``entry.pairing``, ``multi_pairing`` and ``prepare_g2`` over
+    ``curve`` on n = 2^log_n pairs, every check of the path, ``cpu_lanes``
+    lanes of each half (from lane 2 on) against the CPU: (launch counts of
+    the first pairing call, the line)."""
     from algebra_tpu_torch import convert, entry
-    from algebra_tpu_torch.curves.instances import bls12_381
     from algebra_tpu_torch.fields.field import tree_map
     from algebra_tpu_torch.pairing.common import field_prod
 
+    inst = pairing_instance(curve)
     n = 1 << log_n
     half = n // 2
-    g1c, g2c = bls12_381.g1("cpu"), bls12_381.g2("cpu")
+    g1c, g2c = inst.g1("cpu"), inst.g2("cpu")
     P_host, Q_host = pairing_inputs(n, pools)
     p_aff = convert.points_from_reference(g1c.from_host(P_host), device)
     q_aff = convert.points_from_reference(g2c.from_host(Q_host), device)
-    F12 = bls12_381.fq12(device)
-    ctx = bls12_381.pairing(device)
+    F12 = inst.fq12(device)
+    ctx = inst.pairing(device)
 
-    e, counts = launches_of(lambda: entry.pairing(p_aff, q_aff, device=device))
+    e, counts = launches_of(lambda: entry.pairing(p_aff, q_aff, curve=curve, device=device))
     idle = [k for k in ("mont_dot", "mont_mul", "inv_gcd") if not counts.get(k)]
     if idle:
         raise AssertionError(f"a pairing call launched no {idle}: {counts}")
@@ -3070,42 +3089,48 @@ def pairing_at_scale(log_n: int, pools, device) -> tuple:
             vals[i] == one for i in range(n) if i not in planted),
         "infinity_lanes_not_one": sum(vals[i] != one for i in planted),
     }
-    cpu = entry.pairing([P_host[2], P_host[half + 2]], [Q_host[2], Q_host[half + 2]],
-                        device="cpu")
+    lanes = [i for lo in (2, half + 2) for i in range(lo, lo + cpu_lanes)]
+    cpu = entry.pairing([P_host[i] for i in lanes], [Q_host[i] for i in lanes],
+                        curve=curve, device="cpu")
     checks["lanes_differing_from_the_cpu"] = sum(
-        g != w for g, w in zip(bls12_381.fq12("cpu").to_int(cpu), [vals[2], vals[half + 2]]))
-    neg_P = [None if pt is None else (pt[0], bls12_381.P - pt[1]) for pt in P_host]
+        g != vals[i] for g, i in zip(inst.fq12("cpu").to_int(cpu), lanes))
+    neg_P = [None if pt is None else (pt[0], inst.P - pt[1]) for pt in P_host]
     p_neg = convert.points_from_reference(g1c.from_host(neg_P), device)
     cat = lambda u, v: tree_map(lambda x, y: torch.cat([x, y], dim=-1), u, v)  # noqa: E731
-    cancel = entry.multi_pairing(cat(p_aff, p_neg), cat(q_aff, q_aff), device=device)
+    cancel = entry.multi_pairing(cat(p_aff, p_neg), cat(q_aff, q_aff), curve=curve,
+                                 device=device)
     checks["multi_pairing_with_negations_is_one"] = F12.to_int(cancel) == one
-    multi = entry.multi_pairing(p_aff, q_aff, device=device)
+    multi = entry.multi_pairing(p_aff, q_aff, curve=curve, device=device)
     checks["multi_pairing_equals_product_of_lanes"] = (
         F12.to_int(multi) == F12.to_int(field_prod(F12, e)))
-    prepared = entry.prepare_g2(q_aff, device=device)
+    prepared = entry.prepare_g2(q_aff, curve=curve, device=device)
     checks["prepared_lanes_differing"] = sum(
-        g != w for g, w in zip(F12.to_int(entry.pairing(p_aff, prepared, device=device)), vals))
+        g != w for g, w in zip(
+            F12.to_int(entry.pairing(p_aff, prepared, curve=curve, device=device)), vals))
 
     f = ctx.miller_loop(p_aff, q_aff)
     times = {name: median_ms(fn)[0] for name, fn in (
         ("miller_loop_ms", lambda: ctx.miller_loop(p_aff, q_aff)),
         ("final_exponentiation_ms", lambda: ctx.final_exponentiation(f)),
-        ("multi_pairing_ms", lambda: entry.multi_pairing(p_aff, q_aff, device=device)),
-        ("prepare_g2_ms", lambda: entry.prepare_g2(q_aff, device=device)),
-        ("pairing_prepared_ms", lambda: entry.pairing(p_aff, prepared, device=device)))}
+        ("multi_pairing_ms",
+         lambda: entry.multi_pairing(p_aff, q_aff, curve=curve, device=device)),
+        ("prepare_g2_ms", lambda: entry.prepare_g2(q_aff, curve=curve, device=device)),
+        ("pairing_prepared_ms",
+         lambda: entry.pairing(p_aff, prepared, curve=curve, device=device)))}
     torch.cuda.reset_peak_memory_stats()
     times["pairing_ms"], times["pairing_ms_runs"] = median_ms(
-        lambda: entry.pairing(p_aff, q_aff, device=device))
+        lambda: entry.pairing(p_aff, q_aff, curve=curve, device=device))
     times["pairing_ms_a_pair"] = times["pairing_ms"] / n
     peak = torch.cuda.max_memory_allocated()
-    line = {"n": n, "checks": checks, **times, "launches": counts,
+    line = {"n": n, "checks": checks, "cpu_lanes": lanes, **times, "launches": counts,
             "launches_by_family": {k: counts.get(k, 0) for k in PAIRING_FAMILIES},
             "peak_memory_gb": peak / 1e9,
-            "profiled": profile_call(lambda: entry.pairing(p_aff, q_aff, device=device),
-                                     PAIRING_FAMILIES, top=8)}
+            "profiled": profile_call(
+                lambda: entry.pairing(p_aff, q_aff, curve=curve, device=device),
+                PAIRING_FAMILIES, top=8)}
     bad = [k for k, v in checks.items() if (not v if isinstance(v, bool) else v)]
     if bad:
-        raise AssertionError(f"the pairing path failed {bad}: {checks}")
+        raise AssertionError(f"the {curve} pairing path failed {bad}: {checks}")
     return counts, line
 
 
@@ -3135,6 +3160,247 @@ def run_pairing_path(device, rng, rng_host, gpu) -> tuple:
         raise AssertionError(f"K17 disagrees at the Fp12 product's shape: {k17}")
     line.update({"kernel_shape": k17, "gpu": gpu})
     return counts, line, k17
+
+
+BN254_MSM_LOG = 20  # the BN254 G1 MSM: 2^20 scalars on 256 tiled bases
+BN254_CPU_LANES = 4  # lanes of each half of a pairing batch also paired on the CPU
+BN254_MSM_SHARED = 9  # the BN254 lockstep MSM on the card and on the CPU, words compared
+BN254_INF_BASE = 7  # the base of the 256 at infinity
+BN254_FAMILIES = ("mont_dot", "mont_mul", "inv_gcd", "jac_madd_round",
+                  "bucket_reduce_inner", "reduce_fold")
+
+# e(g1, g2) over BN254, in the order of GT_G1_G2, as the JAX package computes
+# it (algebra_tpu.curves.instances.bn254.pairing().pairing on the two
+# generators, run on the CPU).
+BN254_GT_G1_G2 = (
+    ((0x262B253FEDA94CFE0DA01BDE280A3ED6F87E5FEB898578B55E1F63739D870E95,
+      0x02E02D2CC795A2000A1B1F823879ABBD397C4DEA0918ED66B49D34B48EFB8A4A),
+     (0x13A9F2D6E29B128DA5B1AD44B31977935FD2957387ECB1FC4E135402FDBD1DE0,
+      0x040BA9FA500F1A5C4B31984A74E68659C4B420BD699CE630B130B08A6EA1162B),
+     (0x0AFC2F3FD870678FBE359D7F9873F052478F590B211CE30BF5E3EEAEF89EAFDB,
+      0x1C54A530398C9064BDC662D929E645CADDA9A712CC5A8243F9CDDBD2D98DD1F0)),
+    ((0x095C0FBF5D5A1AC023794A0D856F92591BA990ECFD4B7AEF5C0D58C5DC2429FE,
+      0x14D3D6CA72D8A950A31DC10F7B4053C9E9AD9EBB590CB4A60F8215D4B99F2B4A),
+     (0x1DC0E7BBC3D70E6689DC206B4B91C85759DC1A23043C585FDFAF545838CA7429,
+      0x0B53320E5A6488CB98A855FFC837D2A75AB90D61AC16CC1B7AB2CD3ED5E22B97),
+     (0x13A8AFD3085DAE4C6C91476EF36CD1D318CE07BAC42A9C0F9BD7FDDAF5EBD723,
+      0x00F97B5221474526B601F3730A3AFA965CEEE1B343940C383E5314859E762C97)),
+)
+
+
+def bn254_scalars(n: int, rng: np.random.Generator) -> np.ndarray:
+    """uint32 [16, n] scalars below BN254's r: random, with zeros at lanes
+    0, 1 and every 4099th lane, r - 1 at lanes 2 and 3 and every 4111th
+    lane (the top window's largest digit), and 2^240 - 1 at lane 4 (all
+    ones below the top window: signed digits -1 that carry into it)."""
+    from algebra_tpu_torch.bigint import batch_int_to_limbs
+    from algebra_tpu_torch.curves.instances import bn254
+
+    sc = random_scalars(n, rng, bn254.R)
+    sc[:, [0, 1]] = 0
+    sc[:, ::4099] = 0
+    top = batch_int_to_limbs([bn254.R - 1, (1 << 240) - 1], 16)
+    sc[:, [2, 3]] = top[:, :1]
+    sc[:, 5::4111] = top[:, :1]
+    sc[:, 4] = top[:, 1]
+    return sc
+
+
+def mul_kernel_at(spec, n: int, rng, device) -> dict:
+    """K1 on [L, n] operands (the product edges planted in the first
+    lanes): against its plain version, device ms, plain ms, its bound."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.bigint import batch_int_to_limbs
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    L = spec.n_limbs
+    edge = product_edges(spec)
+    a_np, b_np = random_limbs(spec, n, rng), random_limbs(spec, n, rng)
+    m = min(n, len(edge) ** 2)
+    a_np[:, :m] = batch_int_to_limbs([x for x in edge for _ in edge][:m], L)
+    b_np[:, :m] = batch_int_to_limbs([y for _ in edge for y in edge][:m], L)
+    a, b = convert.from_reference(a_np, device), convert.from_reference(b_np, device)
+    want, plain_ms = wall_ms(lambda: mk.mul_plain(spec, a, b))
+    bad, err = mismatches(mk.mul(spec, a, b), want)
+    return with_bound({"mismatches": bad, "max_abs_err": err, "plain_ms": plain_ms,
+                       "ms": device_ms(lambda: mk.mul(spec, a, b), 20), "shape": [L, n],
+                       "field": spec.name}, 3 * n * L * 4, n * mads_per_product(spec))
+
+
+def gcd_kernel_at(spec, n: int, rng, device) -> dict:
+    """K3 (safegcd) on [L, n] values with zeros and edge values planted
+    (``gcd_operands``): ``gcd_vs_ladder``, and against its plain version,
+    whose time is the plain ms."""
+    from algebra_tpu_torch import convert
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    a = convert.from_reference(gcd_operands(spec, n, rng), device)
+    k = gcd_vs_ladder(spec, a)
+    want, k["plain_ms"] = wall_ms(lambda: mk.inv_fermat_plain(spec, a))
+    bad, err = mismatches(mk.inv_gcd(spec, a), want)
+    k.update({"mismatches": k["mismatches"] + bad, "max_abs_err": max(k["max_abs_err"], err),
+              "defects": inverse_defects(spec, a, mk.inv_gcd(spec, a))})
+    k["mismatches"] += k["defects"]
+    return k
+
+
+def bn254_kernel_cases(rng, device) -> dict:
+    """The kernels of the BN254 path against their plain versions at
+    BN254's Fq (254 of 256 bits: two spare bits, where BLS12-381's Fq has
+    three and secp256k1's none): K1 with every pair of the product edges
+    and a host oracle, K3 with edge values and zeros, K8's round kernel
+    with planted lanes and warps, the MSM tail's kernels on planted
+    buckets, K17 on the BN254 pairing's weight matrices (xi = 9 + u) and on
+    random weights at the mass limit, with edge operands, n = 1, 4097 (as
+    views) and 2^16 for the Fp12 product."""
+    from algebra_tpu_torch.curves.instances import bn254
+    from algebra_tpu_torch.ops import mont_kernels as mk
+
+    spec = bn254.fq_spec
+    mats = dict(path_dot_weights("bn254"))
+    K = 20
+    mats["random_at_mass_limit"] = (mass_limit_weights(spec, K, 6, rng),
+                                    [k % 5 == 1 for k in range(K)])
+    dots = []
+    for name, (W, sq) in mats.items():
+        for n in [1, 4097] + ([1 << DOT_WIDE_LOG] if name == "fp12_mul" else []):
+            A, B = dot_operands(spec, W.shape[1], n, sq, rng, device)
+            if n == 4097:  # views: a lane slice of a wider array
+                A = torch.cat([A, A], dim=2)[:, :, :n]
+                B = torch.cat([B, B], dim=2)[:, :, :n]
+            bad, err = mismatches(mk.dot(spec, A, B, W, sq), mk.dot_plain(spec, A, B, W, sq))
+            case = {"weights": name, "n_out": int(W.shape[0]), "K": int(W.shape[1]), "n": n,
+                    "max_row_weight_mass": int(np.abs(W).sum(axis=1).max()),
+                    "mismatches": bad, "max_abs_err": err}
+            if name == "fp12_mul" and n == 4097:
+                case["host_oracle_mismatches"] = dot_host_oracle(spec, A, B, W, 16)
+            dots.append(case)
+            del A, B
+    torch.cuda.synchronize()
+    return {"field": spec.name, "words": spec.n_words,
+            "mont_mul": check_mul_kernel(spec, rng, device),
+            "inv_gcd": check_gcd_kernel(spec, rng, device),
+            "jac_madd_round": check_round_kernel(spec, rng, device),
+            "msm_tail": check_reduce_kernels(spec, rng, device),
+            "mont_dot": dots}
+
+
+def bn254_case_failures(cases: dict) -> list:
+    k1 = cases["mont_mul"]
+    bad = [k1] if k1["mismatches"] or k1["oracle_mismatches"] else []
+    bad += [c for c in cases["inv_gcd"] if c["mismatches"] or c["oracle_mismatches"]]
+    bad += [c for c in cases["jac_madd_round"]["cases"] if c["mismatches"]]
+    bad += [c for c in cases["msm_tail"]["cases"]
+            if c["inner_mismatches"] or c["fold_mismatches"]]
+    bad += [c for c in cases["mont_dot"] if c["mismatches"] or c.get("host_oracle_mismatches")]
+    return bad
+
+
+def bn254_msm(device, rng, rng_host) -> tuple:
+    """``entry.g1_msm(curve="bn254")`` on 2^20 scalars (``bn254_scalars``)
+    over 256 distinct host-made bases tiled, one of them at infinity:
+    exact against the host oracle (the scalars summed per base), the
+    plan, the top window's highest bucket, launches, the median of 3
+    synchronised calls, the steps and device time by kernel
+    (``msm_phase_times``), and 2^9 of it on the card and on the CPU in
+    Jacobian words.  Returns (launches of the first call, the line, K8's
+    round kernel at its operands, the tail's kernels at its buckets)."""
+    from algebra_tpu_torch import convert, entry
+    from algebra_tpu_torch.curves.instances import bn254
+    from algebra_tpu_torch.ops import msm
+
+    curve = bn254.g1(device)
+    pts = host_pool(bn254.g1("cpu"), rng_host)
+    pts[BN254_INF_BASE] = None
+    aff256 = curve.from_host(pts)
+    n = 1 << BN254_MSM_LOG
+    sc_np = bn254_scalars(n, rng)
+    bases = tile(aff256, n)
+    sc = convert.from_reference(sc_np, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def call():  # the MSM and its result's normalisation (K1, one K3)
+        res = entry.g1_msm(bases, sc, curve="bn254", device=device)
+        return res, curve.to_affine(res)
+
+    (res, _), counts = launches_of(call)
+    peak = torch.cuda.max_memory_allocated()
+    plan = dict(msm.stats)
+    if curve.to_host(res) != tiled_oracle(curve, pts, sc_np):
+        raise AssertionError("the BN254 G1 MSM at 2^20 differs from the host oracle")
+    idle = [k for k in ("mont_mul", "jac_madd_round", "bucket_reduce_inner", "reduce_fold",
+                        "inv_gcd") if not counts.get(k)]
+    if idle:
+        raise AssertionError(f"the BN254 MSM launched no {idle}: {counts}")
+    c, W = plan["c"], plan["windows"]
+    _, _, bucket_counts = msm.recode(sc, bases[2], c, W)
+    reached = torch.nonzero(bucket_counts[W - 1]).flatten()
+    top = {"bits_in_top_window": bn254.R.bit_length() - c * (W - 1),
+           "highest_bucket_reached": int(reached.max().item()) if reached.numel() else -1,
+           "buckets_reached": int(reached.numel())}
+    if top["highest_bucket_reached"] < 0:
+        raise AssertionError(f"no scalar reached the BN254 MSM's top window: {top}")
+    ms, runs = median_ms(lambda: entry.g1_msm(bases, sc, curve="bn254", device=device))
+    del bases, res, bucket_counts
+    phases, round_k, reduce_k = msm_phase_times(curve, aff256, sc_np, device)
+    shared = msm_vs_cpu(curve, aff256, sc_np[:, : 1 << BN254_MSM_SHARED], bn254.g1("cpu"))
+    line = {"n": n, "plan": plan, "top_window": top, "ms": ms, "ms_runs": runs,
+            "launches": counts, "peak_memory_gb": peak / 1e9, "host_oracle": "equal",
+            "base_at_infinity": BN254_INF_BASE, f"phases_2^{BN254_MSM_LOG}": phases,
+            f"vs_cpu_2^{BN254_MSM_SHARED}": shared}
+    return counts, line, round_k, reduce_k
+
+
+def run_bn254_path(device, rng, rng_host, gpu) -> tuple:
+    """BN254 through the entry points: its kernels against their plain
+    versions at its field (``bn254_kernel_cases``); e(g1, g2) against the
+    pinned value on the card; ``pairing_at_scale`` at 4096 and 256 pairs
+    with 8 lanes against the CPU; the 2^20 G1 MSM (``bn254_msm``); then
+    the kernel rows: K1, K3 and K17 at the 4096-pair pairing's shapes with
+    its launches, K8's round kernel and the MSM tail's kernels at the MSM's
+    operands with its launches.  Returns (the line, the rows by kernel:
+    (launches, row))."""
+    from algebra_tpu_torch import entry
+    from algebra_tpu_torch.curves.instances import bn254
+
+    t0 = time.time()
+    cases = bn254_kernel_cases(rng, device)
+    failed = bn254_case_failures(cases)
+    if failed:
+        raise AssertionError(f"a kernel disagrees with its plain version at BN254: {failed}")
+    g1c, g2c = bn254.g1("cpu"), bn254.g2("cpu")
+    gen = entry.pairing([g1c.generator_host], [g2c.generator_host], curve="bn254",
+                        device=device)
+    pinned = bn254.fq12(device).to_int(gen)[0] == BN254_GT_G1_G2
+    if not pinned:
+        raise AssertionError("the BN254 e(g1, g2) differs from the pinned value")
+    a = rng_host.randrange(1, bn254.R)
+    ps, qs = host_pool(g1c, rng_host, PAIRING_POOL), host_pool(g2c, rng_host, PAIRING_POOL)
+    pools = (ps, qs, [g1c.host_mul(pt, a) for pt in ps], [g2c.host_mul(pt, a) for pt in qs])
+    line = {"phase": "bn254_path", "kernel_cases": cases, "e_g1_g2_equals_pinned": pinned,
+            "pool": PAIRING_POOL}
+    pair_counts = None
+    for log_n in PAIRING_LOGS:
+        c, line[f"pairs_2^{log_n}"] = pairing_at_scale(log_n, pools, device, curve="bn254",
+                                                        cpu_lanes=BN254_CPU_LANES)
+        pair_counts = pair_counts or c
+    msm_counts, line[f"g1_msm_2^{BN254_MSM_LOG}"], round_k, reduce_k = bn254_msm(
+        device, rng, rng_host)
+    n_pairs = 1 << PAIRING_LOGS[0]
+    rows = {"mont_mul": (pair_counts, mul_kernel_at(bn254.fq_spec, n_pairs, rng, device)),
+            "inv_gcd": (pair_counts, gcd_kernel_at(bn254.fq_spec, n_pairs, rng, device)),
+            "jac_madd_round": (msm_counts, round_k),
+            "bucket_reduce_inner": (msm_counts, reduce_k["bucket_reduce_inner"]),
+            "reduce_fold": (msm_counts, reduce_k["reduce_fold"]),
+            "mont_dot": (pair_counts, dot_kernel_at(device, rng, "bn254"))}
+    bad = {k: r for k, (_, r) in rows.items()
+           if r["mismatches"] or r.get("mismatches_vs_general_k7_k6")}
+    if bad:
+        raise AssertionError(f"a kernel disagrees at the BN254 path's shapes: {bad}")
+    line.update({"kernel_rows": {k: r for k, (_, r) in rows.items()}, "gpu": gpu,
+                 "seconds": time.time() - t0})
+    return line, rows
 
 
 def main() -> int:
@@ -3292,6 +3558,8 @@ def main() -> int:
     t0 = time.time()
     pairing_counts, pairing_line, k17 = run_pairing_path(device, rng, rng_host, gpu)
     emit({**pairing_line, "seconds": time.time() - t0})
+    bn254_line, bn254_rows = run_bn254_path(device, rng, rng_host, gpu)
+    emit(bn254_line)
 
     # launches: K1 and K5 as the product path counted them, K2-K4 as the
     # division path did (which also ran K1 and K5: see its own line), K8's
@@ -3351,11 +3619,23 @@ def main() -> int:
         # no Pallas kernel: the XLA fusion of the reference's dot_stacked
         ("mont_dot", "algebra_tpu/ops/mont.py:536", pairing_counts, k17, dot_src),
     ]
-    emit({"kernels": [
+    kernel_rows = [
         {"name": name, "replaces": replaces, "launches": path_counts.get(name, 0),
          "kernel_ms": k["ms"], **src, **k}
-        for name, replaces, path_counts, k, src in rows]})
+        for name, replaces, path_counts, k, src in rows]
+    # the same kernels at BN254's constants, W = 8: K1, K3 and K17 with the
+    # launches of one 4096-pair BN254 entry.pairing, K8's round kernel and
+    # the MSM tail's kernels with those of the 2^20 BN254 G1 MSM
+    by_name = {name: (replaces, src) for name, replaces, _, _, src in rows}
+    kernel_rows += [
+        {"replaces": by_name[name][0], "launches": path_counts.get(name, 0),
+         "kernel_ms": k["ms"], **by_name[name][1], **k, "name": f"{name}_bn254",
+         "kernel": name, "curve": "bn254"}
+        for name, (path_counts, k) in bn254_rows.items()]
+    emit({"kernels": kernel_rows})
     idle = [name for name, _, path_counts, _, _ in rows if path_counts.get(name, 0) <= 0]
+    idle += [f"{name}_bn254" for name, (path_counts, _) in bn254_rows.items()
+             if path_counts.get(name, 0) <= 0]
     if idle:
         raise AssertionError(f"a path launched no kernel of: {idle}")
     print(gpu, flush=True)

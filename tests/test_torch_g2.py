@@ -3,10 +3,10 @@ reference's ``dot_multi`` waves, each one ``dot_stacked``, kernel K17's
 plain version here; the composed ``affine_add``; ``psi`` and the subgroup
 checks) held against the JAX package and the host group law.
 
-The JAX side is one compiled function (XLA's lowest optimisation level)
-for the doubling, the full add and the mixed add on the same seeded
-Jacobian words, with planted lanes (P = inf, Q = inf, P = Q, P = -Q, both
-infinite); the words compare exactly (tolerance 0).  Normalisation, scalar
+The JAX side is one compiled function a law (XLA's lowest optimisation
+level), in that law's own test, for the doubling, the full add and the
+mixed add on the same seeded Jacobian words, with planted lanes (P = inf,
+Q = inf, P = Q, P = -Q, both infinite); the words compare exactly (tolerance 0).  Normalisation, scalar
 multiplication, psi, the batched affine add and the subgroup checks give
 unique affine results or booleans and are held against the host group law
 (``SWCurve.host_*``, the JAX package's G2 host oracles), which costs no
@@ -68,25 +68,18 @@ def planted(seed: str):
     return [arr(c) for c in (x1, y1, z1, x2, y2, z2)], np.asarray(inf2)
 
 
-def _laws(curve, P1, P2, aff2):
-    return {"double": curve.double(P1), "add": curve.add(P1, P2),
-            "add_mixed": curve.add_mixed(P1, aff2)}
+_LAWS = {"double": lambda c, P1, P2, aff2: c.double(P1),
+         "add": lambda c, P1, P2, aff2: c.add(P1, P2),
+         "add_mixed": lambda c, P1, P2, aff2: c.add_mixed(P1, aff2)}
 
 
 @pytest.fixture(scope="module")
-def both(curves):
-    rc, pc = curves
+def planted_inputs():
+    """The planted operands as reference arrays and as the port's
+    tensors."""
     arrs, inf2 = planted("g2-laws")
-    ref_in = [tuple(jnp.asarray(c) for c in a) for a in arrs] + [jnp.asarray(inf2)]
-
-    def ref_fn(x1, y1, z1, x2, y2, z2, i2):
-        return _laws(rc, (x1, y1, z1), (x2, y2, z2), (x2, y2, i2))
-
-    ref_out = jax.jit(ref_fn).lower(*ref_in).compile(FAST_COMPILE)(*ref_in)
     pin = [convert.tower_from_reference(a, "cpu") for a in arrs]
-    i2 = torch.from_numpy(inf2)
-    port_out = _laws(pc, tuple(pin[:3]), tuple(pin[3:]), (pin[3], pin[4], i2))
-    return port_out, ref_out
+    return arrs, inf2, pin
 
 
 def _same(got, want) -> bool:
@@ -96,9 +89,20 @@ def _same(got, want) -> bool:
 
 
 @pytest.mark.parametrize("law", ["double", "add", "add_mixed"])
-def test_group_law_vs_reference(both, law):
-    port_out, ref_out = both
-    assert _same(port_out[law], ref_out[law]), law
+def test_group_law_vs_reference(curves, planted_inputs, law):
+    """One JAX compile a law, in its own test, so that no worker compiles a
+    law it does not test."""
+    rc, pc = curves
+    arrs, inf2, pin = planted_inputs
+    ref_in = [tuple(jnp.asarray(c) for c in a) for a in arrs] + [jnp.asarray(inf2)]
+
+    def ref_fn(x1, y1, z1, x2, y2, z2, i2):
+        return _LAWS[law](rc, (x1, y1, z1), (x2, y2, z2), (x2, y2, i2))
+
+    ref_out = jax.jit(ref_fn).lower(*ref_in).compile(FAST_COMPILE)(*ref_in)
+    i2 = torch.from_numpy(inf2)
+    port_out = _LAWS[law](pc, tuple(pin[:3]), tuple(pin[3:]), (pin[3], pin[4], i2))
+    assert _same(port_out, ref_out), law
 
 
 def host_points(curve, n: int, seed: str) -> list:

@@ -61,7 +61,9 @@ def test_package_imports_without_jax_or_cuda():
             "algebra_tpu_torch.fields.quadratic", "algebra_tpu_torch.fields.cubic",
             "algebra_tpu_torch.fields.fp12", "algebra_tpu_torch.fields.element",
             "algebra_tpu_torch.pairing", "algebra_tpu_torch.pairing.common",
-            "algebra_tpu_torch.pairing.bls12", "algebra_tpu_torch.pairing.gt"} <= names
+            "algebra_tpu_torch.pairing.bls12", "algebra_tpu_torch.pairing.gt",
+            "algebra_tpu_torch.pairing.bn", "algebra_tpu_torch.curves.instances.bn254",
+            "algebra_tpu_torch.curves.instances._derive"} <= names
     assert "DEFAULT cuda" in out.stdout
 
 
@@ -72,7 +74,10 @@ def test_no_source_file_imports_jax():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 34
     pairing = os.path.join(REPO, "algebra_tpu_torch", "pairing")
-    assert {os.path.join(pairing, n) for n in ("common.py", "bls12.py", "gt.py")} <= set(files)
+    assert {os.path.join(pairing, n)
+            for n in ("common.py", "bls12.py", "bn.py", "gt.py")} <= set(files)
+    instances = os.path.join(REPO, "algebra_tpu_torch", "curves", "instances")
+    assert {os.path.join(instances, n) for n in ("bn254.py", "_derive.py")} <= set(files)
     for path in files:
         assert not (_imports_of(path) & forbidden), path
 

@@ -5,9 +5,10 @@ host Fq12 tower, on the CPU (every tower product through K17's plain
 version).
 
 The JAX side is ``bls12_381.pairing().pairing`` compiled once at XLA's
-lowest optimisation level on the same 2 lanes, (g1, g2) and (a g1, g2);
-the port's pairing must give the same Montgomery words.  e(g1, g2) must
-also equal the pinned value below.  The multi-pairing, the lanes at
+lowest optimisation level on the same 2 lanes, (g1, g2) and (a g1, g2),
+inside ``test_pairing_vs_reference`` alone, so that one xdist worker pays
+for it; the port's pairing must give the same Montgomery words.  e(g1, g2)
+must also equal the pinned value below.  The multi-pairing, the lanes at
 infinity, the prepared path and GT's group operations are then checked
 against those two lanes and the host tower, with no further JAX compile
 (a JAX GT exponentiation would be one of the costliest compiles of the
@@ -57,16 +58,12 @@ A = 0x2B1E_0D51  # the scalar of lane 1
 @pytest.fixture(scope="module")
 def two_lanes():
     """(host G1 points, host G2 points, the port's pairing as host ints,
-    the port's raw tensors, the reference's pairing as numpy)."""
+    the port's raw tensors)."""
     g1, g2 = bls12_381.g1("cpu"), bls12_381.g2("cpu")
     P, Q = g1.generator_host, g2.generator_host
     ps, qs = [P, g1.host_mul(P, A)], [Q, Q]
-    rg1, rg2 = ref_bls.g1(), ref_bls.g2()
-    rp, rq = rg1.from_host(ps), rg2.from_host(qs)
-    ref_fn = jax.jit(ref_bls.pairing().pairing).lower(rp, rq).compile(FAST_COMPILE)
-    ref_e = convert.tower_to_reference(convert.tower_from_reference(ref_fn(rp, rq), "cpu"))
     got = entry.pairing(ps, qs, device="cpu")
-    return ps, qs, bls12_381.fq12("cpu").to_int(got), got, ref_e
+    return ps, qs, bls12_381.fq12("cpu").to_int(got), got
 
 
 def _same(got, want) -> bool:
@@ -76,12 +73,18 @@ def _same(got, want) -> bool:
 
 
 def test_pairing_vs_reference(two_lanes):
-    *_, got, ref_e = two_lanes
+    """The file's one JAX compile: the reference's pairing on the same two
+    lanes, word for word."""
+    ps, qs, _, got = two_lanes
+    rg1, rg2 = ref_bls.g1(), ref_bls.g2()
+    rp, rq = rg1.from_host(ps), rg2.from_host(qs)
+    ref_fn = jax.jit(ref_bls.pairing().pairing).lower(rp, rq).compile(FAST_COMPILE)
+    ref_e = convert.tower_to_reference(convert.tower_from_reference(ref_fn(rp, rq), "cpu"))
     assert _same(got, ref_e)
 
 
 def test_pairing_of_generators_is_pinned(two_lanes):
-    _, _, e, _, _ = two_lanes
+    _, _, e, _ = two_lanes
     assert e[0] == GT_G1_G2
     assert not H12.equal(e[0], H12.one())
     assert H12.pow(e[0], bls12_381.R) == H12.one()  # an element of order r
@@ -90,7 +93,7 @@ def test_pairing_of_generators_is_pinned(two_lanes):
 
 def test_entry_takes_reference_arrays(two_lanes):
     """The same pairs as the reference's affine triples."""
-    ps, qs, e, _, _ = two_lanes
+    ps, qs, e, _ = two_lanes
     p = convert.points_to_reference(bls12_381.g1("cpu").from_host(ps[:1]))
     q = convert.points_to_reference(bls12_381.g2("cpu").from_host(qs[:1]))
     assert bls12_381.fq12("cpu").to_int(entry.pairing(p, q, device="cpu")) == e[:1]
@@ -99,7 +102,7 @@ def test_entry_takes_reference_arrays(two_lanes):
 def test_multi_pairing(two_lanes):
     """e(g1, g2) e(-g1, g2) e(a g1, g2) through one final exponentiation:
     the pair and its negation cancel, the product is lane 1's pairing."""
-    ps, qs, e, _, _ = two_lanes
+    ps, qs, e, _ = two_lanes
     g1 = bls12_381.g1("cpu")
     neg = (ps[0][0], bls12_381.P - ps[0][1])
     got = entry.multi_pairing([ps[0], neg, ps[1]], [qs[0]] * 3, device="cpu")
@@ -110,7 +113,7 @@ def test_multi_pairing(two_lanes):
 def test_prepared_path_and_infinity(two_lanes):
     """pairing(p, prepare_g2(q)) equals the unprepared lanes, and a lane
     with either point at infinity gives 1."""
-    ps, qs, e, _, _ = two_lanes
+    ps, qs, e, _ = two_lanes
     prepared = entry.prepare_g2(qs + [qs[0], None], device="cpu")
     got = entry.pairing(ps + [None, ps[0]], prepared, device="cpu")
     one = H12.one()
@@ -134,7 +137,7 @@ def test_gt_group_vs_host_tower(two_lanes):
     """GTGroup over the two pairing values: add (the product), neg (the
     conjugate, the inverse there), double, zero, mul_int, per-lane
     scalar_mul and msm against host Fq12 powers."""
-    _, _, e, got, _ = two_lanes
+    _, _, e, got = two_lanes
     F12 = bls12_381.fq12("cpu")
     gt = GTGroup(F12, bls12_381.R)
     g0 = gt.index(got, slice(0, 1))
